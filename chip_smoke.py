@@ -12,9 +12,18 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    single PyTorch library call computing the same function;
 4. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
-   ``ThomsonScatteringDiagnostic``, checks that every kernel launched in that
-   run, compares 4 lineouts with the plain path on the CPU in float64, and
-   times the forward.
+   ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
+   in that run, compares 4 lineouts with the plain path on the CPU in float64,
+   and times the forward;
+5. compares loss and gradient of 4 lineouts on the card (float32, kernels)
+   with the CPU float64 plain path, per active parameter;
+6. fits the 128 lineouts: the data are the port's own forward at the seeded
+   truth, the parameters start at the deck's values, and ``_1d_adam_loop_``
+   takes FIT_STEPS adam steps at lr 2e-2.  Every one of the six kernels must
+   launch at least once per step, every loss must be finite, the best loss
+   must fall to a tenth of the first, and the medians of the recovered Te, ne
+   and m must lie within 10 %, 5 % and 15 % of the truth.  It reports ms per
+   step and a profile of a few steps.
 
 It prints one JSON line per phase and check, then the kernel table, then the
 card's name and power limit as ``nvidia-smi`` gives them, and last
@@ -23,6 +32,7 @@ card's name and power limit as ``nvidia-smi`` gives them, and last
 exits 2.
 """
 
+import copy
 import json
 import math
 import statistics
@@ -51,6 +61,34 @@ LOOKUP_TOL = 1e-5
 TAIL_EPW_TOL = 1e-3
 TAIL_IAW_RATIO = 2.0
 TAIL_IAW_FLOOR = 1e-6
+# table cotangents of the lookups vs their float32 plain twins (scatter_add_),
+# of max |cotangent|: both sum ~25 (K2) or ~160 (K4) float32 terms per entry in
+# an order of their own
+LOOKUP_BWD_TOL = 1e-5
+# the tail's cotangents are held to the twin (autograd of the plain tail) run
+# in float64 on the same inputs, each output on its own: at most TAIL_BWD_TOL
+# of that output's largest magnitude (measured <= 5e-4).  Two outputs have no
+# magnitude of their own to go by.  g_ud is an exact zero (ud shifts every
+# xi_e alike and the tail sees only their differences): it is held to
+# TAIL_BWD_TOL of g_Va's magnitude, the other velocity.  Away from the
+# ion-acoustic band the spectrum depends on Ti ~1e-10 times as much as on Te,
+# and the float64 twin's own g_Ti is rounding noise there (~1e-8 of g_Te: its
+# terms grow as xi_i^2 while their sum falls as xi_i^-4): g_Ti may miss by
+# TAIL_BWD_TI_FLOOR of g_Te's magnitude on top of TAIL_BWD_TOL of its own.
+# A single species' g_fract is an exact zero as well (the Zbar coupling cancels
+# it): it gets TAIL_BWD_TOL of g_Z's magnitude.
+TAIL_BWD_TOL = 1e-3
+TAIL_BWD_TI_FLOOR = 1e-6
+# loss and gradient, float32 kernels on the card vs the float64 plain path on
+# the CPU: the loss relative, each active parameter's gradient as a share of
+# that parameter's largest |gradient| over the lineouts (measured <= 4.4e-3
+# for Te, ne, m, amp1, amp2 and 8.5e-3 for lam)
+LOSS_TOL = 5e-3
+GRAD_TOL = 2e-2
+FIT_STEPS = 200
+FIT_LR = 2e-2
+FIT_LOSS_DROP = 0.1  # final best loss <= this share of the first
+FIT_TOL = {"Te": 0.10, "ne": 0.05, "m": 0.15}  # median relative error of the recovered parameter
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 400_000_000  # ~0.2 s: lets the host queue every timed launch before the first runs
@@ -141,9 +179,9 @@ def make_batch(n):
     return {"e_amps": np.ones((n, 1)), "i_amps": np.ones((n, 1)), "noise_e": np.zeros((n, 1)), "noise_i": np.zeros((n, 1))}
 
 
-def check_kernel(name, got, want, scale):
+def check_kernel(name, got, want, scale, rel_tol=LOOKUP_TOL):
     err = max_err(got, want)
-    tol = LOOKUP_TOL * scale
+    tol = rel_tol * scale
     emit({"phase": "kernel_check", "kernel": name, "max_abs_err": err, "scale": scale, "tol": tol, "ok": err <= tol})
     if not err <= tol:
         raise RuntimeError(f"{name}: kernel disagrees with its plain twin, max |err| {err:.3e} > {tol:.3e}")
@@ -151,8 +189,8 @@ def check_kernel(name, got, want, scale):
 
 
 def check_lookups(rng):
-    """K1 and K3 at the whole-shot shapes, on seeded tables and queries that
-    include both edge cells and queries beyond both ends."""
+    """K1-K4 at the whole-shot shapes, on seeded tables, queries that include
+    both edge cells and queries beyond both ends, and a seeded cotangent."""
     import torch
     import torch.nn.functional as F
 
@@ -183,6 +221,19 @@ def check_lookups(rng):
         max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=device_times_ms(lib),
     )
+    # K2: the table cotangent of K1; yardstick: one scatter_add_ (the i0 deposits alone, indices given)
+    gt = torch.tensor(rng.standard_normal((B, Q)), dtype=torch.float32, device=dev)
+    kern = lambda: lin_lookup.lin_lookup_bwd(qt, gt, x0, dx, n)  # noqa: E731
+    plain = lambda: lin_lookup.plain_bwd(qt, gt, x0, dx, n)  # noqa: E731
+    want = plain()
+    err = check_kernel("lin_lookup_bwd", [kern()], [want], float(want.abs().max()), LOOKUP_BWD_TOL)
+    idx = torch.clamp(torch.floor(torch.clamp((qt - x0) / dx, 0.0, n - 1.0)), max=n - 2.0).long()
+    lib = lambda: torch.zeros((B, n), dtype=torch.float32, device=dev).scatter_add_(-1, idx, gt)  # noqa: E731
+    b_ms, b_by = bound_ms(8 * B * Q + 4 * B * n, 8 * B * Q)
+    rows["lin_lookup_bwd"] = dict(
+        max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_times_ms(lib),
+    )
 
     # K3: the 320-point log-EDF table on the DLM velocity grid, per-row meta
     n = 320
@@ -203,6 +254,19 @@ def check_lookups(rng):
     rows["cubic_lookup_fwd"] = dict(
         max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=None,
+    )
+    # K4: the table cotangent of K3; yardstick: one scatter_add_ (one of the four taps, indices given)
+    gt = torch.tensor(rng.standard_normal((B, Q)), dtype=torch.float32, device=dev)
+    kern = lambda: cubic_lookup.cubic_lookup_bwd(qt, gt, meta, n)  # noqa: E731
+    plain = lambda: cubic_lookup.plain_bwd(qt, gt, meta, n)  # noqa: E731
+    want = plain()
+    err = check_kernel("cubic_lookup_bwd", [kern()], [want], float(want.abs().max()), LOOKUP_BWD_TOL)
+    idx = torch.clamp(torch.floor((qt - x0) / dv), 0.0, n - 2.0).long()
+    lib = lambda: torch.zeros((B, n), dtype=torch.float32, device=dev).scatter_add_(-1, idx, gt)  # noqa: E731
+    b_ms, b_by = bound_ms(8 * B * Q + 12 * B + 4 * B * n, 40 * B * Q)
+    rows["cubic_lookup_bwd"] = dict(
+        max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_times_ms(lib),
     )
     return rows
 
@@ -257,37 +321,199 @@ def check_tail(diag, params):
     )
 
 
-def profile_forward(forward, forward_ms, reps=3, top=10):
-    """Device time per forward (torch.profiler): the sum over device kernels, the
-    device's busy share, the top kernels, and the top PyTorch ops by the device
-    time of the kernels they launched (the port's own kernels have no op)."""
+def tail_bwd_misses(label, g, args, report):
+    """K6 against its twin in float64 on (g, args), per output (the float32 twin's own
+    miss beside it); fills ``report`` and returns (all ok, max |kernel - float64 twin|)."""
+    import torch
+
+    from tsadar_tpu_torch.ops import spectrum_tail
+
+    names = spectrum_tail.GRAD_NAMES
+    got, want = spectrum_tail.spectrum_tail_bwd(g, *args), spectrum_tail.plain_bwd(g, *args)
+    ref = spectrum_tail.plain_bwd(g.double(), *(a.double() for a in args))
+    scales = {name: float(r.abs().max()) for name, r in zip(names, ref)}
+    floors = {"ud": TAIL_BWD_TOL * scales["Va"], "Ti": TAIL_BWD_TI_FLOOR * scales["Te"], "fract": TAIL_BWD_TOL * scales["Z"]}
+    ok, worst = True, 0.0
+    for name, k, w, r in zip(names, got, want, ref):
+        tol = TAIL_BWD_TOL * scales[name] + floors.get(name, 0.0)
+        miss_k, miss_w = float((k.double() - r).abs().max()), float((w.double() - r).abs().max())
+        entry = {"scale": scales[name], "kernel_vs_f64": miss_k, "plain_f32_vs_f64": miss_w, "tol": tol,
+                 "ok": bool(torch.isfinite(k).all()) and miss_k <= tol}
+        report[f"{label}:{name}"] = entry
+        ok = ok and entry["ok"]
+        worst = max(worst, miss_k)
+    return ok, worst
+
+
+def two_species_tail_case(rng, device):
+    """(g, the tail's fourteen arguments) of a small synthetic case for the branches of K6
+    that the one-species main path does not run: two gradient points, two ion species
+    (the Zbar coupling), flow and drift, three angles with a weight each, 96 wavelengths
+    over 450-650 nm, some of them inside the ion-acoustic feature."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.constants import C
+    from tsadar_tpu_torch.core.physics.form_factor import _kinematics_fields
+
+    B, L = 3, 96
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    ne = t(1e20 * rng.uniform(0.15, 0.3, (B, 2)))
+    Te = t(rng.uniform(0.4, 0.9, (B, 2)))
+    lam, Va, ud = t(rng.uniform(525.0, 528.0, B)), t(1e6 * rng.uniform(-0.5, 0.5, B)), t(1e6 * rng.uniform(-0.5, 0.5, B))
+    A, Z = t(np.tile([40.0, 1.0], (B, 1))), t(np.tile([8.0, 1.0], (B, 1)))
+    Ti, fract = t(rng.uniform(0.1, 0.3, (B, 2))), t(np.tile([0.7, 0.3], (B, 1)))
+    sarad = t(np.deg2rad([55.0, 60.0, 65.0]))
+    omgs = t(2.0e7 * np.pi * C / np.linspace(450.0, 650.0, L))
+    xie = _kinematics_fields(sarad, omgs, ne, Te, lam, Va, ud)[-1]
+    lf = (-0.5 * xie**2 - 0.92).contiguous()  # a Maxwellian's log f_e at the phase velocities
+    chi = (1.0 / (1.0 + xie**2) - 0.5).contiguous()  # smooth and O(1), like chi_R
+    g = t(rng.standard_normal((B, L)))
+    return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t([0.5, 0.3, 0.2]), sarad, omgs)
+
+
+def check_tail_bwd(diag, params, rng):
+    """K6 on the forward's own lookup outputs and a seeded cotangent g [128, 5120] that
+    is zero inside the iawfilter band, as the loss's fit windows make it; and on a small
+    case with two gradient points and two species.  Same limits for both."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.constants import C
+    from tsadar_tpu_torch.ops import spectrum_tail
+
+    ff = diag.model.electron_form_factor
+    inputs = ff._lookups_1v(params())
+    args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
+    B, G, L, NA = inputs[0].shape
+    S = inputs[7].shape[-1]
+    blue, red, _ = diag.model._filter_band()
+    lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
+    noise = torch.tensor(rng.standard_normal((B, L)), dtype=torch.float32, device=ff.omgs.device)
+    noise = torch.where((lam > blue) & (lam < red), 0.0, noise)
+    report = {}
+    ok, worst = tail_bwd_misses("main", noise, args, report)  # max_abs_err is the main path's
+    ok = tail_bwd_misses("two_species", *two_species_tail_case(rng, ff.omgs.device), report)[0] and ok
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "max_abs_err": worst, "per_output": report, "ok": ok})
+    if not ok:
+        bad = {n: r for n, r in report.items() if not r["ok"]}
+        raise RuntimeError(f"spectrum_tail_bwd: cotangents miss the float64 twin: {bad}")
+    g = noise
+    kern = lambda: spectrum_tail.spectrum_tail_bwd(g, *args)  # noqa: E731
+    plain = lambda: spectrum_tail.plain_bwd(g, *args)  # noqa: E731
+    # the forward's operations recomputed (as counted for K5) plus about as many again for the chain rule
+    nops = 2 * B * G * L * NA * (100 + 130 * S)
+    nbytes = 16 * B * G * L * NA + 4 * B * L + 4 * (4 * B * G + 6 * B + 7 * B * S + 2 * NA + L)
+    b_ms, b_by = bound_ms(nbytes, nops)
+    return dict(
+        max_abs_err=worst, ms=device_times_ms(kern), plain_ms=device_times_ms(plain, reps=5, warmup=1), bound_ms=b_ms,
+        bound_by=b_by, library_ms=None,
+    )
+
+
+def profile_run(run, units, unit_ms, phase, unit, top=10):
+    """Device time per unit of work (a forward, a fit step) from torch.profiler
+    over ``run()``, which does ``units`` of them: the sum over device kernels,
+    the device's busy share of the measured wall time ``unit_ms``, the top
+    kernels, and the top PyTorch ops by the device time of the kernels they
+    launched (the port's own kernels have no op)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            forward()
+        run()
         torch.cuda.synchronize()
 
     def ranked(on_device):
-        rows = [(e.key, e.self_device_time_total / reps / 1e3, e.count / reps) for e in prof.key_averages()
-                if (e.device_type == DeviceType.CUDA) == on_device and e.self_device_time_total > 0]
+        # ranges that PyTorch annotates on the device (the optimizer's step) span kernels counted on their own
+        rows = [(e.key, e.self_device_time_total / units / 1e3, e.count / units) for e in prof.key_averages()
+                if (e.device_type == DeviceType.CUDA) == on_device and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False) and not e.key.startswith("Optimizer.")]
         return sorted(rows, key=lambda r: -r[1])
 
     kernels, ops = ranked(True), ranked(False)
     device_ms = sum(r[1] for r in kernels)
     as_json = lambda rows: [{"name": k[:100], "ms": t, "calls": c} for k, t, c in rows[:top]]  # noqa: E731
-    return {"phase": "profile", "device_ms_per_forward": device_ms, "forward_ms": forward_ms,
-            "device_busy_share": device_ms / forward_ms, "kernel_launches_per_forward": sum(r[2] for r in kernels),
+    return {"phase": phase, f"device_ms_per_{unit}": device_ms, f"{unit}_ms": unit_ms,
+            "device_busy_share": device_ms / unit_ms, f"kernel_launches_per_{unit}": sum(r[2] for r in kernels),
             "top_kernels": as_json(kernels), "top_ops": as_json(ops)}
+
+
+def fit_config(cfg, n, steps):
+    cfg = copy.deepcopy(cfg)
+    cfg["optimizer"].update(method="adam", learning_rate=FIT_LR, num_epochs=steps, batch_size=n)
+    return cfg
+
+
+def fit_data(diag, cfg, draws, n):
+    """The fit's batch: the port's own forward at the seeded truth (amps 1, noise 0)."""
+    import torch
+
+    with torch.no_grad():
+        truth = make_params(cfg, draws, n, diag.device, diag.dtype)
+        e_data = diag(truth, make_batch(n))[0]
+    return make_batch(n) | {"e_data": e_data, "i_data": torch.zeros((n, 1), dtype=diag.dtype, device=diag.device)}
+
+
+def grad_check(cfg, sas, draws, diag_cpu):
+    """Loss and gradient of N_CHECK lineouts at the deck's start values, on the
+    same data: the card (float32, kernels) against the CPU plain forms in float64."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+
+    cfg = fit_config(cfg, N_CHECK, 1)
+    data = {k: np.asarray(v) for k, v in fit_data(diag_cpu, cfg, draws, N_CHECK).items()}  # float64, for both
+    results = {}
+    for name, device, dtype in (("f64", "cpu", torch.float64), ("card", "cuda", torch.float32)):
+        loss_fn = LossFunction(cfg, sas, data, device=device, dtype=dtype)
+        params = ThomsonParams.create(cfg["parameters"], N_CHECK, activate=True, device=device, dtype=dtype)
+        (value, _), grads = loss_fn.value_and_grad(params, data)
+        results[name] = float(value), {k: g.double().cpu() for k, g in grads.items()}
+    (loss_ref, g_ref), (loss, g_card) = results["f64"], results["card"]
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    report = {k: float((g_card[k] - g_ref[k]).abs().max() / g_ref[k].abs().max()) for k in g_ref}
+    ok = loss_err <= LOSS_TOL and all(err <= GRAD_TOL for err in report.values())
+    emit({"phase": "grad_check", "lineouts": N_CHECK, "loss": loss, "loss_f64_cpu": loss_ref, "loss_rel_err": loss_err,
+          "loss_tol": LOSS_TOL, "grad_err_of_max_per_parameter": report, "grad_tol": GRAD_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"loss or gradient on the card disagrees with the CPU float64 path: {loss_err:.3e}, {report}")
+
+
+def run_fit(cfg, sas, draws, n, steps, diag):
+    """Fit ``n`` lineouts from the deck's start values to the port's own spectra at
+    the seeded truth, on ``diag``'s device: (the loop's record, best loss,
+    relative errors of the recovered Te, ne, m and the absolute error of lam
+    [nm] per lineout, (loss function, batch))."""
+    from tsadar_tpu_torch import LossFunction
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+
+    cfg = fit_config(cfg, n, steps)
+    batch = fit_data(diag, cfg, draws, n)
+    loss_fn = LossFunction(cfg, sas, batch, device=diag.device, dtype=diag.dtype)
+    record = {}
+    best_loss, best = _1d_adam_loop_(cfg, loss_fn, None, batch, record=record)
+    fitted = best.get_unnormed_params()["electron"]
+    errors = {k: np.abs(fitted[k].detach().cpu().numpy() / draws[k][:n] - 1.0) for k in FIT_TOL}
+    errors["lam_nm"] = np.abs(best.get_unnormed_params()["general"]["lam"].detach().cpu().numpy() - draws["lam"][:n])
+    return record, best_loss, errors, (loss_fn, batch)
 
 
 KERNELS = {
     "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84"),
+    "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193"),
     "cubic_lookup_fwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:314"),
+    "cubic_lookup_bwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:416"),
     "spectrum_tail_fwd": ("tsadar_tpu_torch/csrc/spectrum_tail.cu", "tsadar_tpu/ops/spectrum_kernel.py:380"),
+    "spectrum_tail_bwd": ("tsadar_tpu_torch/csrc/spectrum_tail_bwd.cu", "tsadar_tpu/ops/spectrum_kernel.py:407"),
 }
+FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd")
+
+
+def read_and_zero(wrappers):
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return counts
 
 
 def main():
@@ -330,24 +556,28 @@ def main():
     batch = make_batch(N_LINEOUTS)
     wrappers = {
         "lin_lookup_fwd": lin_lookup.lin_lookup_fwd,
+        "lin_lookup_bwd": lin_lookup.lin_lookup_bwd,
         "cubic_lookup_fwd": cubic_lookup.cubic_lookup_fwd,
+        "cubic_lookup_bwd": cubic_lookup.cubic_lookup_bwd,
         "spectrum_tail_fwd": spectrum_tail.spectrum_tail_fwd,
+        "spectrum_tail_bwd": spectrum_tail.spectrum_tail_bwd,
     }
 
     with torch.no_grad():
         # 3. every kernel against its plain twin, at the main path's shapes
-        rows = check_lookups(np.random.default_rng(SEED))
+        rng = np.random.default_rng(SEED)
+        rows = check_lookups(rng)
         rows["spectrum_tail_fwd"] = check_tail(diag, params)
+        rows["spectrum_tail_bwd"] = check_tail_bwd(diag, params, rng)
 
-        # 4. the main path: the whole-shot forward through the kernels
-        for fn in wrappers.values():
-            fn.launches = 0
+        # 4. the first main path: the whole-shot forward through the kernels
+        read_and_zero(wrappers)
         ThryE = diag(params, batch)[0]
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in wrappers.items()}
-        emit({"phase": "forward_launches", "launches": launches})
-        if not all(launches.values()):
-            raise RuntimeError(f"the forward did not launch every kernel: {launches}")
+        fwd_launches = read_and_zero(wrappers)
+        emit({"phase": "forward_launches", "launches": fwd_launches})
+        if not all(fwd_launches[k] for k in FORWARD_KERNELS):
+            raise RuntimeError(f"the forward did not launch every forward kernel: {fwd_launches}")
         if ThryE.shape != (N_LINEOUTS, 1024) or not bool(torch.isfinite(ThryE).all()):
             raise RuntimeError(f"forward output: shape {tuple(ThryE.shape)}, finite {bool(torch.isfinite(ThryE).all())}")
 
@@ -368,10 +598,47 @@ def main():
         ms = statistics.median(times)
         emit({"phase": "forward", "lineouts": N_LINEOUTS, "npts": cfg["other"]["npts"], "angles": len(sas["sa"]),
               "ms": ms, "spectra_per_s": N_LINEOUTS / ms * 1e3, "times_ms": times, "gpu": smi})
-        emit(profile_forward(lambda: diag(params, batch), ms))
+        emit(profile_run(lambda: [diag(params, batch) for _ in range(3)], 3, ms, "profile", "forward"))
+
+    # 5. loss and gradient on the card against the CPU float64 plain path
+    grad_check(cfg, sas, draws, diag_cpu)
+
+    # 6. the second main path: the adam fit of the whole lineout batch, forward and backward through the kernels
+    read_and_zero(wrappers)
+    record, best_loss, errors, (loss_fn, fit_batch) = run_fit(cfg, sas, draws, N_LINEOUTS, FIT_STEPS, diag)
+    torch.cuda.synchronize()
+    fit_launches = read_and_zero(wrappers)
+    losses = record["losses"]
+    # the whole fit on the host clock (every chunk ends on a synchronizing read), and the chunks on their own
+    ms_per_step = 1e3 * sum(record["chunk_seconds"]) / FIT_STEPS
+    chunk_ms = [1e3 * s / n for s, n in zip(record["chunk_seconds"], record["chunk_steps"])]
+    medians = {k: float(np.median(v)) for k, v in errors.items()}
+    fit_ok = (
+        all(n >= FIT_STEPS for n in fit_launches.values())
+        and bool(np.isfinite(losses).all())
+        and best_loss <= FIT_LOSS_DROP * losses[0]
+        and all(medians[k] <= tol for k, tol in FIT_TOL.items())
+    )
+    emit({"phase": "fit", "lineouts": N_LINEOUTS, "steps": FIT_STEPS, "lr": FIT_LR, "launches": fit_launches,
+          "first_loss": losses[0], "last_loss": losses[-1], "best_loss": best_loss, "losses_finite": bool(np.isfinite(losses).all()),
+          "median_rel_err": {k: medians[k] for k in FIT_TOL}, "max_rel_err": {k: float(errors[k].max()) for k in FIT_TOL},
+          "tol": FIT_TOL, "median_lam_abs_err_nm": medians["lam_nm"], "max_lam_abs_err_nm": float(errors["lam_nm"].max()),
+          "ms_per_step": ms_per_step, "steps_per_s": 1e3 / ms_per_step, "lineout_steps_per_s": N_LINEOUTS * 1e3 / ms_per_step,
+          "fit_seconds": sum(record["chunk_seconds"]), "chunk_median_ms_per_step": statistics.median(chunk_ms),
+          "chunk_ms_per_step": chunk_ms, "losses_every_10th": losses[::10], "gpu": smi, "ok": fit_ok})
+    if not fit_ok:
+        raise RuntimeError(f"fit: launches {fit_launches}, best loss {best_loss:.3e} of first {losses[0]:.3e}, "
+                           f"median errors {medians} against {FIT_TOL}")
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+
+    few = 4  # steps under the profiler, from the deck's start values again
+    emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, fit_batch), few, ms_per_step,
+                     "fit_profile", "step"))
 
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1], "launches": launches[k], **rows[k]}
+        {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
+         "launches": fwd_launches[k] if k in FORWARD_KERNELS else fit_launches[k], "fit_launches": fit_launches[k],
+         "launches_per_fit_step": fit_launches[k] / FIT_STEPS, **rows[k]}
         for k in wrappers
     ]})
     print(smi, flush=True)

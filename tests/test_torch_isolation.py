@@ -16,7 +16,7 @@ from tsadar_tpu_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tsadar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "tsadar_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "tsadar_tpu")
 
 
 def _forbidden(module):
@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, tsadar_tpu_torch, tsadar_tpu_torch.convert\n"
         "from tsadar_tpu_torch.ops import build, cubic_lookup, lin_lookup, spectrum_tail\n"
+        "from tsadar_tpu_torch.inverse import loops, loss\n"
         f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
@@ -60,9 +61,18 @@ def test_entry_points_default_to_the_gpu():
         lambda: resolve_device(None),
         lambda: port.ThomsonScatteringDiagnostic(cfg, {"sa": np.ones(10), "weights": np.ones(10)}),
         lambda: port.ThomsonParams.create({}, 2),
+        lambda: port.LossFunction({"optimizer": {"y_norm": False}, "data": {}, **cfg}, {"sa": np.ones(10), "weights": np.ones(10)}, {}),
+        lambda: port.one_d_loop({"optimizer": {"method": "adam", "batch_size": 1, "y_norm": False}, "data": {}, **cfg},
+                                {k: np.zeros((1, 1)) for k in ("e_data", "i_data", "e_amps", "i_amps", "noiseE", "noiseI")},
+                                {"sa": np.ones(10), "weights": np.ones(10)}, np.arange(1), 1),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_the_port_covers_the_inverse_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"tsadar_tpu_torch/inverse/loss.py", "tsadar_tpu_torch/inverse/loops.py", "chip_smoke.py"} <= names
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

@@ -40,3 +40,30 @@ def test_zprime_matches_jax(dtype, atol):
     jre, jim = jzp.zprime(jnp.asarray(x))
     np.testing.assert_allclose(re.numpy(), np.asarray(jre), rtol=0, atol=atol)
     np.testing.assert_allclose(im.numpy(), np.asarray(jim), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", DTYPES)
+def test_dawsn_derivative_is_analytic_and_matches_jax(dtype, atol):
+    """D' = 1 - 2 x D, from the value of the same dtype branch, as the JAX package's custom JVP."""
+    import jax
+
+    x = X.astype(dtype)
+    xt = torch.tensor(x, requires_grad=True)
+    d = tzp.dawsn(xt)
+    (got,) = torch.autograd.grad(d, xt, torch.ones_like(d))
+    assert got.dtype == xt.dtype
+    torch.testing.assert_close(got, 1.0 - 2.0 * xt.detach() * d.detach(), rtol=0, atol=0)
+    want = jax.vmap(jax.grad(jzp.dawsn))(jnp.asarray(x))
+    # the derivative carries 2|x| times the value's error, |x| <= 9
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=20 * atol)
+
+
+def test_zprime_gradient_matches_jax_f64():
+    import jax
+
+    x = X[::7]
+    xt = torch.tensor(x, requires_grad=True)
+    re, im = tzp.zprime(xt)
+    (got,) = torch.autograd.grad(re.sum() + 2.0 * im.sum(), xt)
+    want = jax.grad(lambda v: jnp.sum(jzp.zprime(v)[0]) + 2.0 * jnp.sum(jzp.zprime(v)[1]))(jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)

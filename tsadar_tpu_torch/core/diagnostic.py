@@ -17,9 +17,12 @@ class ThomsonScatteringDiagnostic(nn.Module):
     """``diag(ts_params, batch) -> (ThryE [B, 1024], ThryI, lamAxisE [B, 1024], lamAxisI)``.
 
     Runs on the GPU unless ``device="cpu"`` is given; the working dtype is
-    float32 on the card and float64 on the CPU.  On the card the forward runs
-    through the hand-written kernels, which have no backward yet: call it
-    under ``torch.no_grad()``.
+    float32 on the card and float64 on the CPU.  The model is differentiable
+    in the parameters on both: on the card forward and backward run through
+    the hand-written kernels, on the CPU through their plain forms.  ``batch``
+    entries may be arrays or tensors; tensors already on the device in the
+    working dtype are used as they are, so a fit converts its batch once
+    (``device_batch``) and pays no copy per call.
     """
 
     def __init__(self, cfg, scattering_angles, device=None, dtype=None):
@@ -48,8 +51,15 @@ class ThomsonScatteringDiagnostic(nn.Module):
             lamAxisE, ThryE = irf.add_electron_IRF(self.cfg, lamAxisE, modlE, amps["e_amps"], TSins)
         return ThryE, ThryI, lamAxisE, lamAxisI
 
+    def device_batch(self, batch):
+        """``batch`` with every entry as a tensor on the device, in the working dtype."""
+        return {k: self._tensor(v) for k, v in batch.items()}
+
     def forward(self, ts_params, batch):
-        physical_params = ts_params()
+        return self.spectra(ts_params(), batch)
+
+    def spectra(self, physical_params, batch):
+        """The forward model from the physical parameters ``ts_params()``."""
         modlE, modlI, lamAxisE, lamAxisI = self.model(physical_params)
         amps = {k: self._tensor(batch[k]) for k in ("e_amps", "i_amps")}
         ThryE, ThryI, lamAxisE, lamAxisI = self.postprocess_theory(

@@ -82,8 +82,14 @@ class DLM1V(nn.Module):
         self.register_buffer("m_ax", torch.as_tensor(ms))
         self.register_buffer("f_vx_m", torch.as_tensor(table))
 
+    def _unnormed_m(self):
+        return act(self.normed_m, self.activated) * self.m_scale + self.m_shift
+
+    def get_unnormed_params(self):
+        return {"m": self._unnormed_m()}
+
     def forward(self):
-        m = act(self.normed_m, self.activated) * self.m_scale + self.m_shift
+        m = self._unnormed_m()
         fdlm = _interp_columns(m, self.m_ax, self.f_vx_m)
         dv = self.vx[1] - self.vx[0]
         return fdlm / torch.sum(fdlm, dim=-1, keepdim=True) / dv
@@ -96,6 +102,9 @@ class Maxwellian1V(nn.Module):
         super().__init__()
         self.num_params = num_params
         self.register_buffer("vx", torch.as_tensor(velocity_grid(dist_cfg["nvx"])))
+
+    def get_unnormed_params(self):
+        return {}
 
     def forward(self):
         dv = self.vx[1] - self.vx[0]

@@ -53,6 +53,9 @@ class ElectronParams(nn.Module):
             )
         self.distribution_functions = _DIST_1V[kind](fe_cfg, num_params, activate)
 
+    def get_unnormed_params(self):
+        return self.params() | self.distribution_functions.get_unnormed_params()
+
     def forward(self):
         return self.params() | {"fe": self.distribution_functions(), "v": self.distribution_functions.vx}
 
@@ -114,3 +117,61 @@ class ThomsonParams(nn.Module):
             f"ion-{i+1}": ion() for i, ion in enumerate(self.ions)
         }
         return self.renormalize_ions(tmp)
+
+    def get_unnormed_params(self):
+        """Physical scalar parameters per group (the EDF as its shape parameters, not its values)."""
+        tmp = {"electron": self.electron.get_unnormed_params(), "general": self.general()} | {
+            f"ion-{i+1}": ion() for i, ion in enumerate(self.ions)
+        }
+        return self.renormalize_ions(tmp)
+
+    def get_fitted_params(self, param_cfg):
+        """({group: {name: value}} of the active parameters, their number), for reporting."""
+        param_dict = self.get_unnormed_params()
+        fitted, num_params = {}, 0
+        for group, values in param_dict.items():
+            fitted[group] = {}
+            for name, value in values.items():
+                active = param_cfg[group]["fe"]["active"] if name == "m" else param_cfg[group].get(name, {}).get("active", False)
+                if active:
+                    fitted[group][name] = value
+                    num_params += 1
+        return fitted, num_params
+
+
+def jax_path(name: str) -> str:
+    """The JAX ``keystr`` leaf path of one of the port's parameter names
+    (``ions.0.params.normed.Ti`` -> ``.ions[0].params.normed['Ti']``); the inverse of ``convert.state_key``."""
+    parts = name.split(".")
+    out = ""
+    for prev, part in zip([""] + parts, parts):
+        out += f"[{part}]" if part.isdigit() else f"['{part}']" if prev == "normed" else f".{part}"
+    return out
+
+
+def _is_active(cfg_params, name):
+    parts = name.split(".")
+    if parts[0] == "electron" and parts[1] == "distribution_functions":
+        fe_cfg = cfg_params["electron"]["fe"]
+        return bool(fe_cfg.get("active", False)) and fe_cfg["type"].casefold() == "dlm" and parts[2:] == ["normed_m"]
+    group = f"ion-{int(parts[1]) + 1}" if parts[0] == "ions" else parts[0]
+    if parts[-2] != "normed":
+        return False
+    return bool(cfg_params[group][parts[-1]]["active"])
+
+
+def get_filter_spec(cfg_params, ts_params):
+    """Mark exactly the deck's active leaves trainable and return them by JAX leaf path.
+
+    The counterpart of ``tsadar_tpu.core.params.get_filter_spec`` for the
+    scalar groups and the DLM EDF: ``requires_grad`` is set on a parameter if
+    and only if the deck says ``active``, and the returned
+    ``{JAX keystr path: nn.Parameter}`` holds those, in the module's order.
+    """
+    trainable = {}
+    for name, p in ts_params.named_parameters():
+        active = _is_active(cfg_params, name)
+        p.requires_grad_(active)
+        if active:
+            trainable[jax_path(name)] = p
+    return trainable

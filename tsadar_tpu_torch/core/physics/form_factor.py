@@ -11,8 +11,8 @@ looks up log f_e there (cubic Hermite) and chi_R on the PV pole table
 (linear); the tail (``_reduced_tail``) is kinematics, ion susceptibility,
 the electron Landau term, the S(k, omega) assembly and the weighted
 angle/gradient sum.  On the card both lookups and the whole tail run as
-hand-written CUDA kernels (``tsadar_tpu_torch/ops``); on the CPU the plain
-functions below run, and they are the kernels' oracles.
+hand-written CUDA kernels, forward and backward (``tsadar_tpu_torch/ops``);
+on the CPU the plain functions below run, and they are the kernels' oracles.
 
 The 2V (ARTS) path and the unreduced ``__call__`` are not ported yet.
 """
@@ -22,7 +22,6 @@ import math
 import numpy as np
 import torch
 
-from ...ops.build import on_card
 from . import ratint
 from .constants import C, ME_KEV, MP_KEV, RE_CM, PLASMA_FREQ_CONST
 from .interp import cubic_lookup, interp1d_cubic_matmul, lin_lookup
@@ -88,8 +87,11 @@ def _assemble_fields(k_mag, ceR, ceI, ciR, ciI, fe_vphi, vTe, xii, vTi, Z, fract
     SKW_ion = torch.sum(1.0 / k_mag[..., None] * ion_comp / E2[..., None], dim=-1)
     SKW_ele = 1.0 / k_mag * ele_comp / E2
 
-    PsOmg = (SKW_ion + SKW_ele) * (1.0 + 2.0 * omgdop / omgL) * RE_CM**2 * ne[..., None, None]
-    return PsOmg * 2.0 * math.pi * C / lams[:, None] ** 2
+    # PsOmg = SKW (1 + 2 omgdop / omgL) RE^2 ne, times 2 pi C / lams^2 for wavelength units.  The
+    # constant factors are gathered first: multiplied onto the spectrum one by one, their float32
+    # cotangents overflow in the backward (g / lams^2 * 2 pi C * ne reaches 1e39)
+    scale = (RE_CM**2 * 2.0 * math.pi * C) * ne[..., None, None] / lams[:, None] ** 2
+    return (SKW_ion + SKW_ele) * (1.0 + 2.0 * omgdop / omgL) * scale
 
 
 def _reduced_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weights, sarad, omgs):
@@ -193,7 +195,7 @@ class FormFactor:
         # from an exact zero in the EDF tail would spread through the matmul
         log_fe = torch.log(torch.clamp(fe, min=torch.finfo(fe.dtype).tiny)).contiguous()
         meta = torch.stack([vx[0], vx[1] - vx[0], torch.full_like(vx[0], vx.shape[0])])
-        lf = cubic_lookup(q, log_fe, meta.expand(B, 3).contiguous())[0]
+        lf = cubic_lookup(q, log_fe, meta.expand(B, 3).contiguous())
         lf = torch.where((q < vx[0]) | (q > vx[-1]), -50.0, lf)
 
         ratmod = torch.exp(interp1d_cubic_matmul(self.xi1, vx, log_fe, (-50.0, -50.0)))  # [B, h1]
@@ -205,20 +207,17 @@ class FormFactor:
         mid_vals, node_vals = ratint.pv_tables_matmul(ratdf, self._pv_kmid, self._pv_knode)
         table = torch.empty((B, mid_vals.shape[1] + node_vals.shape[1]), dtype=mid_vals.dtype, device=mid_vals.device)
         table[:, 0::2], table[:, 1::2] = mid_vals, node_vals
-        chiERraw = lin_lookup(q, table, self.pv_x0, self.pv_dx)[0]
+        chiERraw = lin_lookup(q, table, self.pv_x0, self.pv_dx)
 
         return lf.view_as(xie), chiERraw.view_as(xie), ne, Te, lam, Va, ud, A, Z, Ti, fract
 
     def reduced_1v(self, params, weights):
         """(reduced spectrum [B, L], wavelength axis [L] in cm) through the spectrum tail.
 
-        The tail is ``_reduced_tail`` on the CPU and the ``spectrum_tail_fwd``
-        kernel on the card.
+        The tail is ``ops.spectrum_tail.SpectrumTail``: ``_reduced_tail`` and
+        its autograd on the CPU, the K5/K6 kernels on the card.
         """
-        inputs = self._lookups_1v(params)
-        if on_card(inputs[0]):
-            from ...ops.spectrum_tail import spectrum_tail_fwd as tail
-        else:
-            tail = _reduced_tail
-        reduced = tail(*inputs, weights, self.sarad, self.omgs)
+        from ...ops.spectrum_tail import SpectrumTail
+
+        reduced = SpectrumTail.apply(*self._lookups_1v(params), weights, self.sarad, self.omgs)
         return reduced, 2.0 * math.pi * C / self.omgs

@@ -10,15 +10,30 @@ kernel in ``tsadar_tpu_torch/ops``:
   unclamped-t edge extrapolation (the log-EDF at the phase velocities); the
   math of ``interp1d_cubic_blocked``'s forward.
 
-Dispatch: a CPU tensor takes the plain form below, a CUDA tensor the kernel --
-there is no fallback from one to the other.  ``interp1d_cubic_matmul`` (the
+``lin_lookup`` and ``cubic_lookup`` are the differentiable lookups of
+``tsadar_tpu_torch/ops``: a CPU tensor takes the plain forms below, a CUDA
+tensor the kernels, forward and backward -- there is no fallback from one to
+the other.  ``interp1d_cubic_matmul`` (the
 EDF on the fixed 1024-point xi grid) stays a plain matmul, as in JAX.
 """
 
 import torch
 import torch.nn.functional as F
 
-from ...ops.build import on_card
+
+def lin_cell(q, x0, dx, n):
+    """(raw position, i0, w) of the linear lookup on the grid x0 + dx * arange(n).
+
+    pos = raw clipped to [0, n-1], i0 = min(floor(pos), n-2), w = pos - i0.
+    """
+    # x0 and dx as tensors: PyTorch divides by a Python-scalar divisor through
+    # its reciprocal, which moves pos by an ulp and can flip i0 at a cell edge
+    # against the kernel's true division
+    x0, dx = (torch.as_tensor(v, dtype=q.dtype, device=q.device) for v in (x0, dx))
+    raw = (q - x0) / dx
+    pos = torch.clamp(raw, 0.0, n - 1.0)
+    i0 = torch.clamp(torch.floor(pos), max=n - 2.0)
+    return raw, i0.long(), pos - i0
 
 
 def lin_lookup_plain(q, table, x0, dx):
@@ -27,15 +42,7 @@ def lin_lookup_plain(q, table, x0, dx):
     The grid is x0 + dx * arange(n) for every row; pos is clipped to [0, n-1]
     and i0 to <= n-2, so queries beyond either end take the end value.
     """
-    n = table.shape[-1]
-    # x0 and dx as tensors: PyTorch divides by a Python-scalar divisor through
-    # its reciprocal, which moves pos by an ulp and can flip i0 at a cell edge
-    # against the kernel's true division
-    x0, dx = (torch.as_tensor(v, dtype=q.dtype, device=q.device) for v in (x0, dx))
-    pos = torch.clamp((q - x0) / dx, 0.0, n - 1.0)
-    i0 = torch.clamp(torch.floor(pos), max=n - 2.0)
-    w = pos - i0
-    idx = i0.long()
+    _, idx, w = lin_cell(q, x0, dx, table.shape[-1])
     f0 = torch.gather(table, -1, idx)
     f1 = torch.gather(table, -1, idx + 1)
     return f0 * (1.0 - w) + f1 * w, f1 - f0
@@ -66,6 +73,17 @@ def _cubic_weights(t, first, last, d=False):
     return c_m1, c_0, c_p1, c_p2
 
 
+def cubic_cell(q, meta):
+    """(i0, t, first, last) of the cubic lookup; ``meta`` [B, 3] holds each row's grid (x0, dx, n).
+
+    i0 = clip(floor(pos), 0, n-2), t = pos - i0 unclamped; first/last mark the edge cells.
+    """
+    x0, dx, nf = meta[:, 0:1], meta[:, 1:2], meta[:, 2:3]
+    pos = (q - x0) / dx
+    i0 = torch.minimum(torch.clamp(torch.floor(pos), min=0.0), nf - 2.0)
+    return i0.long(), pos - i0, i0 == 0.0, i0 == nf - 2.0
+
+
 def cubic_lookup_plain(q, table, meta):
     """(value, d value/dt) of per-row tables [B, n] at queries [B, Q].
 
@@ -74,13 +92,8 @@ def cubic_lookup_plain(q, table, meta):
     polynomial.  The taps i0-1 and i0+2 that fall outside the table carry a
     zero weight and read a zero pad.
     """
-    x0, dx, nf = meta[:, 0:1], meta[:, 1:2], meta[:, 2:3]
-    pos = (q - x0) / dx
-    i0 = torch.minimum(torch.clamp(torch.floor(pos), min=0.0), nf - 2.0)
-    t = pos - i0
-    first, last = i0 == 0.0, i0 == nf - 2.0
+    idx, t, first, last = cubic_cell(q, meta)
     padded = F.pad(table, (1, 2))  # padded[:, j + 1] = table[:, j]
-    idx = i0.long()
     taps = [torch.gather(padded, -1, idx + k) for k in range(4)]
     val = sum(c * f for c, f in zip(_cubic_weights(t, first, last), taps))
     dval = sum(c * f for c, f in zip(_cubic_weights(t, first, last, d=True), taps))
@@ -88,21 +101,19 @@ def cubic_lookup_plain(q, table, meta):
 
 
 def lin_lookup(q, table, x0, dx):
-    """``lin_lookup_plain`` on the CPU; the ``lin_lookup_fwd`` kernel on the card."""
-    if on_card(q, table):
-        from ...ops.lin_lookup import lin_lookup_fwd
+    """Differentiable linear lookup value [B, Q]: ``ops.lin_lookup.LinLookup``
+    (the plain forms on the CPU, the K1/K2 kernels on the card)."""
+    from ...ops.lin_lookup import LinLookup
 
-        return lin_lookup_fwd(q, table, x0, dx)
-    return lin_lookup_plain(q, table, x0, dx)
+    return LinLookup.apply(q, table, x0, dx)
 
 
 def cubic_lookup(q, table, meta):
-    """``cubic_lookup_plain`` on the CPU; the ``cubic_lookup_fwd`` kernel on the card."""
-    if on_card(q, table, meta):
-        from ...ops.cubic_lookup import cubic_lookup_fwd
+    """Differentiable cubic lookup value [B, Q]: ``ops.cubic_lookup.CubicLookup``
+    (the plain forms on the CPU, the K3/K4 kernels on the card)."""
+    from ...ops.cubic_lookup import CubicLookup
 
-        return cubic_lookup_fwd(q, table, meta)
-    return cubic_lookup_plain(q, table, meta)
+    return CubicLookup.apply(q, table, meta)
 
 
 def _cubic_W(xq, x):

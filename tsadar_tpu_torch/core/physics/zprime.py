@@ -11,7 +11,8 @@ the JAX package:
 * float32: h = 0.36 with 15 terms on x clipped to [-6.5, 6.5], and the 6-term
   asymptotic (2n-1)!! series above |x| = 6.
 
-Forward only for now: the gradient (D' = 1 - 2 x D) comes with the fit slice.
+``dawsn`` is differentiable through the analytic D' = 1 - 2 x D (the JAX
+package's ``_dawsn_jvp``), not through the series.
 """
 
 import math
@@ -50,12 +51,29 @@ def _dawsn_asymptotic(x):
     return series / (2.0 * xs)
 
 
-def dawsn(x):
-    """Dawson integral D(x) = exp(-x^2) int_0^x exp(t^2) dt, elementwise."""
+def _dawsn_value(x):
     if x.dtype == torch.float64:
         return _dawsn_rybicki(x)
     small = torch.abs(x) <= 6.0
     return torch.where(small, _dawsn_rybicki(torch.clamp(x, -6.5, 6.5)), _dawsn_asymptotic(x))
+
+
+class _Dawsn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        d = _dawsn_value(x)
+        ctx.save_for_backward(x, d)
+        return d
+
+    @staticmethod
+    def backward(ctx, g):
+        x, d = ctx.saved_tensors
+        return g * (1.0 - 2.0 * x * d)
+
+
+def dawsn(x):
+    """Dawson integral D(x) = exp(-x^2) int_0^x exp(t^2) dt, elementwise; D' = 1 - 2 x D."""
+    return _Dawsn.apply(x)
 
 
 def zprime(xi):

@@ -19,6 +19,19 @@
 // (i0 == 0) and last (i0 == n-2) cells.  There the i-1 (first) or i+2 (last)
 // tap lies outside the table; its weight is 0 and it is read as 0, never
 // loaded (the JAX path pads the table with zeros).
+//
+// The table cotangent (cubic_lookup_bwd) replaces
+// tsadar_tpu/ops/interp_kernel2.py::cubic_interp_pallas2_bwd: every query
+// adds g times its four stencil weights to the entries i0-1 .. i0+2 of its
+// row; the tap outside the table in an edge cell has weight 0 and is not
+// written.  As for the linear lookup, the TPU version's hi/lo-bf16 one-hot
+// contraction and segment fold become one f32 scatter-add into [B, n].
+// Bound: q and g in (8 B per query), 1.3 KB per row out: main path ~52 MB,
+// ~16 us.  Design: one block per (row, slab of kSlab queries), an n-float
+// accumulator in shared memory fed by shared-memory atomicAdd, then global
+// atomicAdd of its non-zero entries into the zeroed output.  With 320 cells
+// for 51 200 queries the shared atomics contend heavily; the order of the
+// atomics is not fixed, so the last bits may differ from run to run.
 
 #include <cuda_runtime.h>
 
@@ -91,7 +104,62 @@ __global__ void cubic_lookup_kernel(const float* __restrict__ q, const float* __
   }
 }
 
+constexpr int kSlab = kThreads * 32;
+
+__global__ void cubic_lookup_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                                        const float* __restrict__ meta, float* __restrict__ dtable, int Q, int n) {
+  extern __shared__ float acc[];
+  const int b = blockIdx.y;
+  for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) acc[i] = 0.0f;
+  __syncthreads();
+
+  const float x0 = meta[3 * b + 0];
+  const float dx = meta[3 * b + 1];
+  const float last = fminf(meta[3 * b + 2], static_cast<float>(n)) - 2.0f;
+  const size_t base = static_cast<size_t>(b) * Q;
+  const int slab0 = static_cast<int>(blockIdx.x) * kSlab;
+  const int end = min(Q, slab0 + kSlab);
+  for (int j = slab0 + static_cast<int>(threadIdx.x); j < end; j += kThreads) {
+    const float pos = (q[base + j] - x0) / dx;
+    const float i0f = fminf(fmaxf(floorf(pos), 0.0f), last);
+    const float t = pos - i0f;
+    const int i0 = static_cast<int>(i0f);
+    const float t2 = t * t;
+    const float t3 = t2 * t;
+    const Weights c = stencil(2.0f * t3 - 3.0f * t2 + 1.0f, t3 - 2.0f * t2 + t, -2.0f * t3 + 3.0f * t2,
+                              t3 - t2, i0f == 0.0f, i0f == last);
+    const float gj = g[base + j];
+    if (i0 >= 1) atomicAdd(&acc[i0 - 1], gj * c.m1);
+    atomicAdd(&acc[i0], gj * c.c0);
+    atomicAdd(&acc[i0 + 1], gj * c.p1);
+    if (i0 + 2 < n) atomicAdd(&acc[i0 + 2], gj * c.p2);
+  }
+  __syncthreads();
+
+  float* row = dtable + static_cast<size_t>(b) * n;
+  for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) {
+    const float v = acc[i];
+    if (v != 0.0f) atomicAdd(&row[i], v);
+  }
+}
+
 }  // namespace
+
+// dtable [B, n] must arrive zeroed.
+extern "C" int cubic_lookup_bwd(const void* q, const void* g, const void* meta, void* dtable, int B, int Q, int n,
+                                void* stream) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(cubic_lookup_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((Q + kSlab - 1) / kSlab, B);
+  cubic_lookup_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(g), static_cast<const float*>(meta),
+      static_cast<float*>(dtable), Q, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int cubic_lookup_fwd(const void* q, const void* table, const void* meta, void* val, void* dval,
                                 int B, int Q, int n, void* stream) {

@@ -1,0 +1,205 @@
+"""Loss function of the inverse problem, for a batch of lineouts.
+
+Counterpart of ``tsadar_tpu.inverse.loss``: fit-range windows for the IAW,
+EPW-blue and EPW-red features, the loss functionals (l1, l2, log-cosh,
+poisson), masked means instead of NaN writes, per-lineout row losses for
+best-so-far tracking, and the bound, moment and monotonicity penalties.
+Where JAX partitions the parameters into (diff, static) pytrees, the port
+marks the active leaves ``requires_grad`` (``core.params.get_filter_spec``)
+and ``value_and_grad`` differentiates with ``torch.autograd``; on the card the
+backward runs through the hand-written kernels.
+
+Not ported yet (each raises ``NotImplementedError``): the multiplexed two-shot
+angular loss (ROADMAP.md §1 item 12), the Hessian (item 10) and the flattened
+scipy interface (item 11).
+"""
+
+import math
+
+import torch
+
+from ..core.diagnostic import ThomsonScatteringDiagnostic
+from ..core.params.distributions import act
+from ..core.params.ts_params import get_filter_spec
+
+
+def _masked_reduce(err, mask, reduce_func):
+    """``reduce_func`` over the masked entries (what ``nanmean`` gave the reference)."""
+    if reduce_func == "mean":
+        return torch.sum(torch.where(mask, err, 0.0)) / torch.clamp(torch.sum(mask), min=1)
+    if reduce_func == "sum":
+        return torch.sum(torch.where(mask, err, 0.0))
+    if reduce_func == "mean_axis1":
+        # an unbatched [L] spectrum is one row, so callers can always index a lineout axis
+        bmask = torch.atleast_2d(torch.broadcast_to(mask, err.shape))
+        num = torch.sum(torch.where(bmask, torch.atleast_2d(err), 0.0), dim=1)
+        return num / torch.clamp(torch.sum(bmask, dim=1), min=1)
+    raise NotImplementedError(reduce_func)
+
+
+class LossFunction:
+    """Loss of a lineout batch; runs on the GPU unless ``device="cpu"`` is given."""
+
+    def __init__(self, cfg, scattering_angles, dummy_batch, device=None, dtype=None):
+        self.cfg = cfg
+        if cfg["optimizer"]["y_norm"]:
+            self.i_norm = float(torch.as_tensor(dummy_batch["i_data"]).max())
+            self.e_norm = float(torch.as_tensor(dummy_batch["e_data"]).max())
+        else:
+            self.i_norm = self.e_norm = 1.0
+        if isinstance(cfg["data"].get("shotnum"), list):
+            raise NotImplementedError("the multiplexed two-shot angular loss is not ported yet (ROADMAP.md §1 item 12)")
+        self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype)
+
+    def device_batch(self, batch):
+        """The batch as tensors on the loss's device: convert once per fit, not per call."""
+        return self.ts_diag.device_batch(batch)
+
+    # ------------------------------------------------------------------ errors
+
+    def loss_functionals(self, d, t, uncert, method="l2"):
+        if method == "l1":
+            return torch.abs(d - t) / uncert
+        if method == "l2":
+            return torch.square(d - t) / uncert
+        if method == "log-cosh":
+            return torch.log(torch.cosh(d - t))
+        if method == "poisson":
+            # the floor must survive the working dtype: 1e-300 underflows to 0 in float32
+            return t - d * torch.log(torch.clamp(t, min=torch.finfo(t.dtype).tiny))
+        raise NotImplementedError(method)
+
+    def calc_ei_error(self, batch, ThryI, lamAxisI, ThryE, lamAxisE, uncert, reduce_func="mean"):
+        """Windowed IAW/EPW errors, the masked error arrays, and the per-lineout row means."""
+        i_error = e_error = 0.0
+        i_data, e_data = batch["i_data"], batch["e_data"]
+        i_row = torch.zeros(i_data.shape[0] if i_data.dim() > 1 else 1, dtype=i_data.dtype, device=i_data.device)
+        e_row = torch.zeros(e_data.shape[0] if e_data.dim() > 1 else 1, dtype=e_data.dtype, device=e_data.device)
+        sqdev = {"ele": torch.zeros_like(e_data), "ion": torch.zeros_like(i_data)}
+        fr = self.cfg["data"]["fit_rng"]
+        method = self.cfg["optimizer"]["loss_method"]
+        opts = self.cfg["other"]["extraoptions"]
+
+        if opts["fit_IAW"]:
+            err = self.loss_functionals(i_data, ThryI, uncert[0], method=method)
+            mask = ((lamAxisI > fr["iaw_min"]) & (lamAxisI < fr["iaw_cf_min"])) | (
+                (lamAxisI > fr["iaw_cf_max"]) & (lamAxisI < fr["iaw_max"])
+            )
+            i_error = i_error + _masked_reduce(err, mask, reduce_func)
+            i_row = i_row + _masked_reduce(err, mask, "mean_axis1")
+            sqdev["ion"] = torch.where(mask, err, 0.0)
+
+        if opts["fit_EPWb"]:
+            err = self.loss_functionals(e_data, ThryE, uncert[1], method=method)
+            mask = (lamAxisE > fr["blue_min"]) & (lamAxisE < fr["blue_max"])
+            e_error = e_error + _masked_reduce(err, mask, reduce_func)
+            e_row = e_row + _masked_reduce(err, mask, "mean_axis1")
+            sqdev["ele"] = sqdev["ele"] + torch.where(mask, err, 0.0)
+
+        if opts["fit_EPWr"]:
+            err = self.loss_functionals(e_data, ThryE, uncert[1], method=method)
+            mask = (lamAxisE > fr["red_min"]) & (lamAxisE < fr["red_max"])
+            e_error = e_error + _masked_reduce(err, mask, reduce_func)
+            e_row = e_row + _masked_reduce(err, mask, "mean_axis1")
+            if opts["fit_EPWb"]:
+                e_error = e_error * 0.5
+                e_row = e_row * 0.5
+            sqdev["ele"] = sqdev["ele"] + torch.where(mask, err, 0.0)
+
+        return i_error, e_error, sqdev, i_row, e_row
+
+    def calc_loss(self, ts_params, batch, denom, reduce_func="mean"):
+        """(total loss, sqdev, ThryE, ThryI, physical parameters, per-lineout row losses)."""
+        batch = self.device_batch(batch)
+        physical = ts_params()
+        ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(physical, batch)
+        if denom is None:
+            denom = [ThryI, ThryE]
+        i_error, e_error, sqdev, i_row, e_row = self.calc_ei_error(
+            batch, ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func
+        )
+        ion_scale = self.cfg["data"]["ion_loss_scale"]
+        total_loss = ion_scale * i_error + e_error + self.penalties(physical, ts_params)
+        # the (global) penalty term is left out of the per-lineout selection criterion
+        row_loss = ion_scale * i_row + e_row
+        return total_loss, sqdev, ThryE, ThryI, physical, row_loss
+
+    # -------------------------------------------------------------- interfaces
+
+    def __loss__(self, ts_params, batch):
+        """(total loss, [ThryE, physical parameters, row losses]) with the y-normed squared denominators."""
+        total_loss, _, ThryE, _, params, row_loss = self.calc_loss(
+            ts_params, batch, denom=[self.i_norm**2, self.e_norm**2], reduce_func="mean"
+        )
+        return total_loss, [ThryE, params, row_loss]
+
+    def value_and_grad(self, ts_params, batch, trainable=None):
+        """((loss, aux), {JAX leaf path: gradient}) over the deck's active parameters.
+
+        ``trainable`` is ``get_filter_spec(cfg["parameters"], ts_params)``;
+        a loop passes it in so that the leaves are marked once.
+        """
+        if trainable is None:
+            trainable = get_filter_spec(self.cfg["parameters"], ts_params)
+        with torch.enable_grad():
+            value, aux = self.__loss__(ts_params, batch)
+            grads = torch.autograd.grad(value, list(trainable.values()))
+        aux = [aux[0].detach(), {g: {k: v.detach() for k, v in d.items()} for g, d in aux[1].items()}, aux[2].detach()]
+        return (value.detach(), aux), dict(zip(trainable, grads))
+
+    def post_loss(self, ts_params, batch):
+        """Per-lineout loss array for postprocessing: theory-normalized, row means."""
+        total_loss, sqdev, ThryE, ThryI, params, _ = self.calc_loss(ts_params, batch, denom=None, reduce_func="mean_axis1")
+        return total_loss, sqdev, ThryE, ThryI, params
+
+    def vg_loss(self, *args, **kwargs):
+        raise NotImplementedError("the flattened scipy interface is not ported yet (ROADMAP.md §1 item 11)")
+
+    loss = vg_loss
+
+    def h_loss_wrt_params(self, *args, **kwargs):
+        raise NotImplementedError("the Hessian is not ported yet (ROADMAP.md §1 item 10)")
+
+    # -------------------------------------------------------------- penalties
+
+    def penalties(self, params, ts_module=None):
+        """Optional regularization terms; each contributes 0 unless its config flag is set."""
+        total = 0.0
+        if self.cfg["optimizer"].get("bound_penalty", False) and ts_module is not None:
+            total = total + self.bound_penalty(ts_module)
+        if self.cfg["optimizer"].get("moment_loss", False):
+            total = total + sum(self.moment_penalties(params))
+        fe_cfg = self.cfg["parameters"]["electron"]["fe"]
+        if fe_cfg.get("fe_decrease_strict", False) and fe_cfg.get("dim", 1) == 1:
+            v, fe = params["electron"]["v"], params["electron"]["fe"]
+            gradfe = torch.sign(v[..., 1:]) * torch.diff(fe, dim=-1)
+            vals = torch.sum(torch.where(gradfe > 0.0, gradfe, 0.0))
+            total = total + torch.tan(torch.clamp(vals, max=math.pi / 2 - 1e-3))
+        return total
+
+    def bound_penalty(self, ts_module):
+        """Log-based out-of-bounds penalty on the normalized scalar parameters.
+
+        In-bounds normalized values lie in [0, 1], where ``log(|w - 0.5| + 0.5)
+        <= 0`` is relu'd to zero; outside, the penalty grows like ``log|w|``.
+        Activated (sigmoid) parameters are measured in their activated [0, 1]
+        space, so the penalty is a no-op guard there.  The EDF is left out.
+        """
+        groups = [ts_module.electron.params, ts_module.general.params] + [ion.params for ion in ts_module.ions]
+        total = 0.0
+        for g in groups:
+            for name, v in g.normed.items():
+                w = act(v, g.activated[name])
+                total = total + torch.sum(torch.clamp(torch.log(torch.abs(w - 0.5) + 0.5), min=0.0))
+        return total
+
+    def moment_penalties(self, params):
+        """(density, temperature, momentum) moment losses of the physical 1V EDF."""
+        if self.cfg["parameters"]["electron"]["fe"].get("dim", 1) == 2:
+            raise NotImplementedError("2V moment penalties are not ported yet (ROADMAP.md §1 item 12)")
+        fe, v = params["electron"]["fe"], params["electron"]["v"]
+        dv = (v[..., 1] - v[..., 0])[..., None]
+        density_loss = torch.mean(torch.square(1.0 - torch.sum(fe * dv, dim=-1)))
+        temperature_loss = torch.mean(torch.square(1.0 - torch.sum(fe * v**2 * dv, dim=-1)))
+        momentum_loss = torch.mean(torch.square(torch.sum(fe * v * dv, dim=-1)))
+        return density_loss, temperature_loss, momentum_loss

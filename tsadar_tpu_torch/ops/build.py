@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``.  Libraries land in
 ``tsadar_tpu_torch/_build/`` (git-ignored) under a name that carries the hash
-of the source and the flags, so an edited source is rebuilt at its next use.
+of the source, the shared headers and the flags, so an edited source is
+rebuilt at its next use.
 Nothing is compiled at import: ``build()`` runs at first use, or up front from
 a driver that wants the build timed as set-up.
 """
@@ -21,7 +22,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("lin_lookup", "cubic_lookup", "spectrum_tail")
+SOURCES = ("lin_lookup", "cubic_lookup", "spectrum_tail", "spectrum_tail_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,7 +39,8 @@ def _nvcc():
 
 def library_path(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -85,7 +87,14 @@ def c_function(lib_name, fn_name, argtypes):
 
 
 def check_input(t, name, ndim):
-    """A kernel operand must be a contiguous float32 CUDA tensor of rank ``ndim``."""
+    """A kernel operand must be a contiguous float32 CUDA tensor of rank ``ndim``.
+
+    The raw wrappers record nothing for autograd: gradients flow through the
+    ``torch.autograd.Function`` beside each wrapper, whose forward and backward
+    run with gradient mode off.  Called directly on a tensor that is being
+    differentiated, a wrapper would drop the gradient without a word, so that
+    is refused.
+    """
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor")
     if t.dtype != torch.float32:
@@ -95,7 +104,7 @@ def check_input(t, name, ndim):
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if torch.is_grad_enabled() and t.requires_grad:
-        raise NotImplementedError(f"{name} requires grad: the kernels' backward is not ported yet")
+        raise ValueError(f"{name} requires grad: call the kernel through its autograd Function, not its raw wrapper")
 
 
 def launch(fn, *args, device):
