@@ -23,7 +23,19 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    launch at least once per step, every loss must be finite, the best loss
    must fall to a tenth of the first, and the medians of the recovered Te, ne
    and m must lie within 10 %, 5 % and 15 % of the truth.  It reports ms per
-   step and a profile of a few steps.
+   step and a profile of a few steps;
+7. drives the ARTS 2V path at its full width (the ``tests/configs/arts2*`` deck:
+   1024 wavelengths x 241 fine angles, a 128 x 128 arbitrary 2D EDF, 256-row
+   angle tables, one image): holds the fused chi-table lookup and its cotangent
+   (K7, K8) against their plain twins on seeded queries, on an edge set and on
+   the deck's own queries; runs the forward through
+   ``ThomsonScatteringDiagnostic`` (K7 exactly once) and compares it with the
+   CPU float64 plain path; compares loss and gradient with respect to the EDF
+   (K7 and K8 once each) with that path; fits the image with ``angular_optax``
+   (adam, ARTS_FIT_STEPS steps; K7 and K8 once per step, every loss finite, the
+   last under a quarter of the first); and runs the deck's own
+   spherical-harmonic EDF and the ARTS 1V deck forward once each against the
+   CPU float64 path.
 
 It prints one JSON line per phase and check, then the kernel table, then the
 card's name and power limit as ``nvidia-smi`` gives them, and last
@@ -89,6 +101,24 @@ FIT_STEPS = 200
 FIT_LR = 2e-2
 FIT_LOSS_DROP = 0.1  # final best loss <= this share of the first
 FIT_TOL = {"Te": 0.10, "ne": 0.05, "m": 0.15}  # median relative error of the recovered parameter
+# the fused chi-table lookup (K7) against its float32 twin (same arithmetic but for fused multiply-adds,
+# every query) and against its twin in float64 on the same float32 inputs: values at most CHI_TOL of
+# the segment's largest |entry|; the derivative outputs at most CHI_TOL of that over the cell width,
+# against float64 only where float32 and float64 put the query into the same cell (the derivative
+# jumps from cell to cell; the queries that differ are counted and reported)
+CHI_TOL = 1e-5
+# its cotangent (K8): dT and dbeta at most CHI_BWD_TOL of their own largest |entry|, against both
+# twins.  dT sums Q / (R nvx) ~ 7.5 float32 deposits per cell on uniform queries and thousands at
+# the peak cell of the deck's own, by atomics in an order that changes from run to run
+CHI_BWD_TOL = 1e-4
+ARTS_NEGATIVE_TOL = 1e-4  # the ARTS image may dip below zero by this share of its peak (NUDFT ringing in the far tail)
+# the ARTS 1V deck's resonance is so narrow that float32 misses the float64 image at its peak pixel,
+# in the plain forms on the CPU as on the card: there the card is held directly to the CPU float32
+# plain forward, of peak (measured 2.0e-4; kernels against plain forms on the card itself 4.4e-5)
+ARTS_1V_F32_TOL = 1e-3
+ARTS_FIT_STEPS = 120
+ARTS_FIT_LR = 5e-4
+ARTS_FIT_DROP = 0.25  # last loss under this share of the first (the JAX ARTS bench's gate)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 400_000_000  # ~0.2 s: lets the host queue every timed launch before the first runs
@@ -432,9 +462,12 @@ def profile_run(run, units, unit_ms, phase, unit, top=10):
 
     kernels, ops = ranked(True), ranked(False)
     device_ms = sum(r[1] for r in kernels)
+    # uploads belong to a run's set-up (a fit's data, a model's tables), not to its steady state
+    upload_ms = sum(r[1] for r in kernels if r[0].startswith("Memcpy HtoD"))
     as_json = lambda rows: [{"name": k[:100], "ms": t, "calls": c} for k, t, c in rows[:top]]  # noqa: E731
     return {"phase": phase, f"device_ms_per_{unit}": device_ms, f"{unit}_ms": unit_ms,
             "device_busy_share": device_ms / unit_ms, f"kernel_launches_per_{unit}": sum(r[2] for r in kernels),
+            f"host_to_device_copy_ms_per_{unit}": upload_ms,
             "top_kernels": as_json(kernels), "top_ops": as_json(ops)}
 
 
@@ -498,6 +531,398 @@ def run_fit(cfg, sas, draws, n, steps, diag):
     return record, best_loss, errors, (loss_fn, batch)
 
 
+ARTS_2V_DECK = ("arts2v_test_defaults.yaml", "arts2d_test_inputs.yaml")
+ARTS_1V_DECK = ("arts1v_test_defaults.yaml", "arts1v_test_inputs.yaml")
+
+
+def load_arts_deck(arbitrary=True, names=ARTS_2V_DECK):
+    """(config, scattering angles) of a full-width ARTS workload: the test decks ``names`` merged,
+    the geometry read as spectype "angular" (241 fine angles, the [1024, 241] weight matrix, the
+    camera's angle axis), then run as "angular_full"; ``arbitrary`` swaps the 2V deck's
+    spherical-harmonic EDF for the pointwise 128 x 128 one that the angular fit trains.  The
+    1024 x 1024 CCD is not reduced, so a resolution unit is one pixel."""
+    from tsadar_tpu_torch import get_calibrations, get_scattering_angles
+    from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
+
+    cfg = set_forward_ranges(merge_configs(*[yaml.safe_load((ROOT / "tests" / "configs" / n).read_text()) for n in names]))
+    fe = cfg["parameters"]["electron"]["fe"]
+    if arbitrary:
+        fe.update(type="arbitrary", dim=2, nvx=128)
+        # the EDF starts from the deck's own super-Gaussian order, init_m 2.2, as in the JAX ARTS bench
+        fe.setdefault("params", {}).setdefault("learn_log", True)
+    sas = get_scattering_angles(cfg)
+    sas["angAxis"] = get_calibrations(104000, cfg["other"]["extraoptions"]["spectype"], 0.0, cfg["other"]["CCDsize"])[0]
+    cfg["other"]["extraoptions"]["spectype"] = "angular_full"
+    cfg["other"].update(ang_res_unit=1, lam_res_unit=1)
+    return cfg, sas
+
+
+def arts_batch(cfg):
+    shape = tuple(cfg["other"]["CCDsize"])
+    return {"e_data": np.ones(shape), "i_data": np.ones(shape), "e_amps": np.array([1.0]), "i_amps": np.array([1.0]),
+            "noise_e": np.array([0.0]), "noise_i": np.array([0.0])}
+
+
+def arts_models(cfg, sas, device, dtype=None):
+    """(diagnostic, unbatched parameters) of the ARTS deck.  The port projects by the exact NUDFT on
+    the card and by the fft2 slice on the CPU, as the JAX package does by backend; the CPU reference
+    here is given the card's projection, so that the two devices compute the same function."""
+    from tsadar_tpu_torch import ThomsonParams, ThomsonScatteringDiagnostic
+
+    diag = ThomsonScatteringDiagnostic(cfg, sas, device=device, dtype=dtype)
+    if diag.device.type == "cpu" and diag.model.dim == 2:
+        ff = diag.model.electron_form_factor
+        ff._project_all_fourier = lambda vx, DF, betas: ff._project_all_nudft(vx, DF)
+    return diag, ThomsonParams.create(cfg["parameters"], 1, activate=True, device=device, dtype=dtype, batch=False)
+
+
+def smooth_tables(rng, R, nvx):
+    """A seeded stacked table [R, 3 nvx - 2] as smooth as the path's own: a few angular harmonics
+    times Gaussians in velocity per segment, entries of order 1."""
+    theta = 2.0 * np.pi * np.arange(R) / R
+    segs = []
+    for ns in (nvx, nvx, nvx - 2):
+        v = np.linspace(-6.0, 6.0, ns)
+        seg = np.zeros((R, ns))
+        for k in range(4):
+            seg += rng.uniform(0.3, 1.0) * np.cos(k * theta + rng.uniform(0, 2 * np.pi))[:, None] * np.exp(
+                -((v - rng.uniform(-2.0, 2.0)) ** 2) / (2.0 * rng.uniform(0.7, 2.0) ** 2))[None, :]
+        segs.append(seg)
+    return np.concatenate(segs, axis=1)
+
+
+def chi_edge_queries(v0x, dvx, v0p, dvp, nvx):
+    """Every edge angle with every edge position: negative beta, beta next to a whole turn, 0, +-pi;
+    x below the grid, on its first and last node, above it, on inner nodes of both grids."""
+    betas = [-1e-8, 2 * math.pi - 1e-7, 0.0, math.pi, -math.pi, 2 * math.pi, -3.0, 3.0]
+    xs = [v0x - 1.0, v0x, v0x + dvx * (nvx - 1), v0x + dvx * (nvx - 1) + 1.0, v0x + 3 * dvx, v0p, v0p + dvp * (nvx - 3),
+          v0p + dvp * 5, 0.0, 0.123]
+    b, x = np.meshgrid(betas, xs, indexing="ij")
+    return b.ravel(), x.ravel()
+
+
+def chi_case(label, bq, xq, T, meta, g):
+    """K7 and K8 on one set of queries against their twins in float32 and in float64 on the card:
+    (report, all ok, max |value error|, max |dT error| against float64)."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.interp import col_cell, rowmix_indices
+    from tsadar_tpu_torch.ops import chi_bilinear as cb
+
+    R, C = T.shape
+    nvx = (C + 2) // 3
+    d = lambda *ts: tuple(t.double() for t in ts)  # noqa: E731
+    out, out32, out64 = cb.chi_bilinear_fwd(bq, xq, T, meta), cb.plain_fwd(bq, xq, T, meta), cb.plain_fwd(*d(bq, xq, T, meta))
+    rows_same = rowmix_indices(R, bq)[0] == rowmix_indices(R, bq.double())[0]
+    report, ok, worst_val = {"queries": int(bq.numel())}, bool(torch.isfinite(out).all()), 0.0
+    same_all = rows_same.clone()
+    for s, ((c0, ns, v0, dv), (_, _, v0d, dvd)) in enumerate(zip(cb.segments(nvx, meta), cb.segments(nvx, meta.double()))):
+        seg_max = float(T[:, c0 : c0 + ns].abs().max())
+        i32, _, in32 = col_cell(xq, v0, dv, ns)
+        i64, _, in64 = col_cell(xq.double(), v0d, dvd, ns)
+        same = rows_same & (i32 == i64) & (in32.double() == in64)
+        same_all &= same
+        entry = {
+            "segment_max": seg_max,
+            "value_vs_f32": float((out[s] - out32[s]).abs().max()) / seg_max,
+            "value_vs_f64": float((out[s].double() - out64[s]).abs().max()) / seg_max,
+            "der_vs_f32": float((out[3 + s] - out32[3 + s]).abs().max()) / (seg_max / float(dv)),
+            "der_vs_f64_same_cell": float(((out[3 + s].double() - out64[3 + s]).abs() * same).max()) / (seg_max / float(dv)),
+            "queries_in_another_cell_in_f64": int((~same).sum()),
+        }
+        entry["ok"] = all(entry[k] <= CHI_TOL for k in ("value_vs_f32", "value_vs_f64", "der_vs_f32", "der_vs_f64_same_cell"))
+        ok = ok and entry["ok"]
+        worst_val = max(worst_val, float((out[s].double() - out64[s]).abs().max()))
+        report[f"segment{s}"] = entry
+
+    (dT, db), (dT32, db32) = cb.chi_bilinear_bwd(bq, xq, T, meta, g), cb.plain_bwd(bq, xq, T, meta, g)
+    dT64, db64 = cb.plain_bwd(*d(bq, xq, T, meta, g))
+    dT_max, db_max = float(dT64.abs().max()), float(db64.abs().max())
+    bwd = {
+        "dT_max": dT_max, "dbeta_max": db_max,
+        "dT_vs_f32": float((dT - dT32).abs().max()) / dT_max,
+        "dT_vs_f64": float((dT.double() - dT64).abs().max()) / dT_max,
+        "dbeta_vs_f32": float((db - db32).abs().max()) / db_max,
+        "dbeta_vs_f64_same_cell": float(((db.double() - db64).abs() * same_all).max()) / db_max,
+    }
+    bwd["ok"] = bool(torch.isfinite(dT).all() and torch.isfinite(db).all()) and all(
+        bwd[k] <= CHI_BWD_TOL for k in ("dT_vs_f32", "dT_vs_f64", "dbeta_vs_f32", "dbeta_vs_f64_same_cell"))
+    report["bwd"] = bwd
+    return {label: report}, ok and bwd["ok"], worst_val, float((dT.double() - dT64).abs().max())
+
+
+def check_chi_bilinear(rng, diag, params):
+    """K7 and K8 at the ARTS deck's shapes (Q = 246 784 queries, R = 256 rows, nvx = 128): on seeded
+    queries that wrap in beta and run past both ends of the grids, with the edge set in front; and on
+    the deck's own tables and queries (beta, |xi_e|).  Times on both sets of queries."""
+    import torch
+    import torch.nn.functional as F
+
+    from tsadar_tpu_torch.ops import chi_bilinear as cb
+
+    dev = diag.device
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    ff = diag.model.electron_form_factor
+    physical = params()
+    vx, fe = physical["electron"]["v"], physical["electron"]["fe"]
+    fields = ff._fields_2v(physical)
+    bq_deck, xq_deck = fields["beta"].reshape(-1).contiguous(), fields["xie_mag"].reshape(-1).contiguous()
+    _, f1d, df1d, pole_grid, chiR = ff._chi_tables(vx, fe)
+    T_deck = torch.cat([f1d, df1d, chiR], dim=-1).contiguous()
+    meta = torch.stack([vx[0], vx[1] - vx[0], pole_grid[0], pole_grid[1] - pole_grid[0]])
+    R, C = T_deck.shape
+    Q, nvx = bq_deck.numel(), vx.numel()
+    if (Q, R, C) != (diag.cfg["other"]["npts"] * ff.sarad.numel(), ff.num_beta, 3 * nvx - 2):
+        raise RuntimeError(f"the ARTS deck gives Q, R, C, nvx = {Q}, {R}, {C}, {nvx}")
+
+    v0x, dvx, v0p, dvp = (float(m) for m in meta)
+    bq, xq = rng.uniform(-7.0, 13.0, Q), rng.uniform(v0x - 1.5, -v0x + 1.5, Q)
+    eb, ex = chi_edge_queries(v0x, dvx, v0p, dvp, nvx)
+    bq[: eb.size], xq[: ex.size] = eb, ex
+    bq, xq, T = t(bq), t(xq), t(smooth_tables(rng, R, nvx))
+    g, g_deck = t(rng.standard_normal((3, Q))), t(rng.standard_normal((3, Q)))
+
+    report, ok, worst_val, worst_dT = chi_case("seeded", bq, xq, T, meta, g)
+    edge = chi_case("edge_set", bq[: eb.size].contiguous(), xq[: ex.size].contiguous(), T, meta, g[:, : eb.size].contiguous())
+    deck = chi_case("deck_queries", bq_deck, xq_deck, T_deck, meta, g_deck)
+    report |= edge[0] | deck[0]
+    ok = ok and edge[1] and deck[1]
+    emit({"phase": "kernel_check", "kernel": "chi_bilinear_fwd+bwd", "Q": Q, "R": R, "nvx": nvx, "tol": CHI_TOL,
+          "bwd_tol": CHI_BWD_TOL, "cases": report, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"chi_bilinear: a kernel disagrees with its plain twins: {report}")
+
+    rows = {}
+    fwd = lambda b, x, tab: (lambda: cb.chi_bilinear_fwd(b, x, tab, meta))  # noqa: E731
+    # yardstick: grid_sample's bilinear interpolation of ONE segment's values (rows made periodic by a copy of row 0)
+    img = torch.cat([T[:, :nvx], T[:1, :nvx]])[None, None]
+    grid = torch.stack([(xq - v0x) / (dvx * (nvx - 1)) * 2.0 - 1.0, torch.remainder(bq, 2 * math.pi) / math.pi - 1.0], dim=-1)[None, None]
+    lib = lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True)  # noqa: E731
+    b_ms, b_by = bound_ms(4 * (8 * Q + R * C + 4), 60 * Q)
+    rows["chi_bilinear_fwd"] = dict(
+        max_abs_err=worst_val, ms=device_times_ms(fwd(bq, xq, T)), ms_deck_queries=device_times_ms(fwd(bq_deck, xq_deck, T_deck)),
+        plain_ms=device_times_ms(lambda: cb.plain_fwd(bq, xq, T, meta)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_times_ms(lib),
+    )
+    bwd = lambda b, x, tab, gg: (lambda: cb.chi_bilinear_bwd(b, x, tab, meta, gg))  # noqa: E731
+    # yardstick: one scatter_add_ (one of the twelve deposits, indices given)
+    idx = (torch.remainder(torch.floor(torch.remainder(bq, 2 * math.pi) * (R / (2 * math.pi))).long(), R) * C
+           + torch.clamp(torch.floor(torch.clamp((xq - v0x) / dvx, 0.0, nvx - 1.0)), max=nvx - 2.0).long())
+    lib = lambda: torch.zeros(R * C, dtype=torch.float32, device=dev).scatter_add_(0, idx, g[0])  # noqa: E731
+    b_ms, b_by = bound_ms(4 * (6 * Q + 2 * R * C + 4), 80 * Q)
+    rows["chi_bilinear_bwd"] = dict(
+        max_abs_err=worst_dT, ms=device_times_ms(bwd(bq, xq, T, g)),
+        ms_deck_queries=device_times_ms(bwd(bq_deck, xq_deck, T_deck, g_deck)),
+        plain_ms=device_times_ms(lambda: cb.plain_bwd(bq, xq, T, meta, g)), bound_ms=b_ms, bound_by=b_by,
+        library_ms=device_times_ms(lib),
+    )
+    return rows
+
+
+def arts_forward(cfg, sas, diag, params, wrappers, smi):
+    """The ARTS forward on the card through the diagnostic: K7 exactly once, a finite positive image,
+    above -ARTS_NEGATIVE_TOL of its peak, within FWD_TOL of peak of the CPU float64 plain path; wall time and a profile.  Returns the
+    launches and the float64 image."""
+    import torch
+
+    batch = arts_batch(cfg)
+    with torch.no_grad():
+        read_and_zero(wrappers)
+        ThryE = diag(params, batch)[0]
+        torch.cuda.synchronize()
+        launches = read_and_zero(wrappers)
+        lineouts = cfg["data"]["lineouts"]
+        shape_ok = tuple(ThryE.shape) == (lineouts["end"] - lineouts["start"], cfg["other"]["npts"])
+        # positive but for the far tail: the exact NUDFT projection of the truncated EDF rings there at
+        # ~1e-5 of peak, in float64 as in float32 (the CPU's fft2 projection does not)
+        sane = shape_ok and bool(torch.isfinite(ThryE).all()) and float(ThryE.min()) > -ARTS_NEGATIVE_TOL * float(ThryE.max())
+        diag_cpu, params_cpu = arts_models(cfg, sas, "cpu")
+        t0 = time.perf_counter()
+        ref = diag_cpu(params_cpu, batch)[0]
+        cpu_s = time.perf_counter() - t0
+        miss = (ThryE.double().cpu() - ref).abs()
+        err = float(miss.max() / ref.abs().max())
+        worst = np.unravel_index(int(miss.argmax()), miss.shape)
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            diag(params, batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        ok = launches == {k: int(k == "chi_bilinear_fwd") for k in wrappers} and sane and err <= FWD_TOL
+        emit({"phase": "arts_forward", "image": list(ThryE.shape), "queries": cfg["other"]["npts"] * len(sas["sa"]),
+              "launches": launches, "finite_and_positive_to_tol": sane,
+              "min": float(ThryE.min()), "max": float(ThryE.max()), "min_f64_cpu": float(ref.min()), "negative_tol": ARTS_NEGATIVE_TOL, "max_err_of_peak": err, "worst_at_row_col": [int(i) for i in worst],
+              "tol": FWD_TOL, "ms": ms, "times_ms": times, "cpu_f64_forward_s": cpu_s, "gpu": smi, "ok": ok})
+        if not ok:
+            raise RuntimeError(f"ARTS forward: launches {launches}, sane {sane}, {err:.3e} of peak against {FWD_TOL}")
+        emit(profile_run(lambda: [diag(params, batch) for _ in range(3)], 3, ms, "arts_profile", "forward"))
+    return launches, ref
+
+
+def arts_grad_check(cfg, sas, target, wrappers):
+    """The JAX ARTS bench's loss mean((T - 0.9 target)^2) and its gradient with respect to the
+    128 x 128 ``fval``: the card (float32, K7 and K8 once each) against the CPU float64 plain path."""
+    import torch
+
+    from tsadar_tpu_torch.core.params import get_filter_spec
+
+    batch, results = arts_batch(cfg), {}
+    for name, device in (("f64", "cpu"), ("card", "cuda")):
+        diag, params = arts_models(cfg, sas, device)
+        (fval,) = get_filter_spec(cfg["parameters"], params).values()
+        read_and_zero(wrappers)
+        loss = torch.mean((diag(params, batch)[0] - 0.9 * target.to(diag.device, diag.dtype)) ** 2)
+        (grad,) = torch.autograd.grad(loss, [fval])
+        results[name] = float(loss.detach()), grad.double().cpu(), read_and_zero(wrappers)
+    (loss_ref, g_ref, _), (loss, g, launches) = results["f64"], results["card"]
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    grad_err = float((g - g_ref).abs().max() / g_ref.abs().max())
+    ok = (loss_err <= LOSS_TOL and grad_err <= GRAD_TOL and bool(torch.isfinite(g).all())
+          and launches == {k: int(k in ARTS_KERNELS) for k in wrappers})
+    emit({"phase": "arts_grad_check", "loss": loss, "loss_f64_cpu": loss_ref, "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
+          "grad_shape": list(g.shape), "grad_max": float(g_ref.abs().max()), "grad_err_of_max": grad_err, "grad_tol": GRAD_TOL,
+          "launches": launches, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"ARTS loss or gradient on the card disagrees with the CPU float64 path: {loss_err:.3e}, {grad_err:.3e}, {launches}")
+
+
+def arts_fit_data(cfg, target):
+    """``angular_optax``'s data: the whole CCD in resolution units, its lineout window holding 0.9 x target."""
+    n_ang, n_lam = cfg["other"]["CCDsize"]
+    lineouts = cfg["data"]["lineouts"]
+    e_data = np.zeros((n_ang, n_lam))
+    e_data[lineouts["start"] : lineouts["end"]] = 0.9 * target.numpy()
+    return {"e_data": e_data, "e_amps": np.ones((n_ang, 1)), "i_data": np.zeros(n_ang), "i_amps": np.zeros(n_ang),
+            "noiseE": np.zeros((n_ang, n_lam)), "noiseI": np.zeros((n_ang, n_lam))}
+
+
+def arts_fit(cfg, sas, target, wrappers, smi):
+    """The angular fit on the card: ``angular_optax`` with adam against 0.9 x target, K7 and K8 once
+    per step, every loss finite, the last under ARTS_FIT_DROP of the first; then a profile of a few steps."""
+    import torch
+
+    from tsadar_tpu_torch import ThomsonParams, angular_optax
+    from tsadar_tpu_torch.inverse.loops import _angular_batch, _angular_loop_
+
+    def fit_config(steps):
+        fit_cfg = copy.deepcopy(cfg)
+        fit_cfg["optimizer"].update(method="adam", learning_rate=ARTS_FIT_LR, num_epochs=steps, chunk_size=8)
+        return fit_cfg
+
+    all_data = arts_fit_data(cfg, target)
+    record = {}
+    read_and_zero(wrappers)
+    best, last_loss, loss_fn = angular_optax(fit_config(ARTS_FIT_STEPS), all_data, sas, record=record)
+    torch.cuda.synchronize()
+    launches = read_and_zero(wrappers)
+    losses, steps_run = record["losses"], sum(record["chunk_steps"])
+    ms_per_step = 1e3 * sum(record["chunk_seconds"]) / steps_run
+    fval = best.electron.distribution_functions.fval
+    ok = (launches == {k: steps_run * int(k in ARTS_KERNELS) for k in wrappers} and bool(np.isfinite(losses).all())
+          and bool(torch.isfinite(fval).all()) and losses[-1] < ARTS_FIT_DROP * losses[0])
+    emit({"phase": "arts_fit", "steps_asked": ARTS_FIT_STEPS, "steps_run": steps_run, "epochs_counted": len(losses),
+          "stopped_early": len(losses) < ARTS_FIT_STEPS, "lr": ARTS_FIT_LR, "launches": launches, "first_loss": losses[0],
+          "last_loss": losses[-1], "best_loss": min(losses), "drop_tol": ARTS_FIT_DROP, "losses_finite": bool(np.isfinite(losses).all()),
+          "ms_per_step": ms_per_step, "steps_per_s": 1e3 / ms_per_step, "fit_seconds": sum(record["chunk_seconds"]),
+          "chunk_ms_per_step": [1e3 * s / n for s, n in zip(record["chunk_seconds"], record["chunk_steps"])],
+          "losses_every_8th": losses[::8], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"ARTS fit: launches {launches} over {steps_run} steps, losses {losses[0]:.3e} -> {losses[-1]:.3e}")
+    # a few steps of the loop alone under the profiler, from the deck's start values again: the
+    # loss function, its tables and the data are on the card already, as in the 1V fit's profile
+    few, lineouts = 4, cfg["data"]["lineouts"]
+    few_cfg = fit_config(few)
+    batch = loss_fn.device_batch(_angular_batch(all_data, slice(lineouts["start"], lineouts["end"])))
+    start = ThomsonParams.create(few_cfg["parameters"], 1, activate=True, device=loss_fn.ts_diag.device, dtype=loss_fn.ts_diag.dtype, batch=False)
+    emit(profile_run(lambda: _angular_loop_(few_cfg, loss_fn, start, batch), few, ms_per_step, "arts_fit_profile", "step"))
+    return launches, steps_run
+
+
+def check_lookups_arts_1v(cfg, sas):
+    """K1 and K3 at the ARTS 1V deck's shapes -- one row, 2048 x 241 queries, the 2043-entry pole table
+    and the 256-point log-EDF as the forward builds them -- on the deck's own operands, against their
+    twins in float32 (every query) and in float64 on the same float32 operands, at LOOKUP_TOL of
+    max |table|.  K1's second output jumps from cell to cell: against float64 it is compared where
+    both precisions put the query into the same cell, and the others are counted.  K3 extrapolates
+    its edge polynomial with an unclamped t, which far from the grid (this deck's |xi_e| reaches 15
+    on a grid of +-8) is rounding noise in any float32 form, and the forward overwrites every query
+    beyond the grid: K3 is compared up to 1.5 cells beyond either end, as at the whole-shot shapes."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.form_factor import _batch_of_one
+    from tsadar_tpu_torch.core.physics.interp import lin_cell
+    from tsadar_tpu_torch.ops import cubic_lookup, lin_lookup
+
+    diag, params = arts_models(cfg, sas, None)
+    ff = diag.model.electron_form_factor
+    xie, log_fe, meta, table, _ = ff._lookup_inputs_1v(_batch_of_one(params()))
+    q = xie.reshape(1, -1).contiguous()
+    x0, dx, n = ff.pv_x0, ff.pv_dx, table.shape[1]
+    if (q.shape[1], n, log_fe.shape[1]) != (cfg["other"]["npts"] * len(sas["sa"]), 2043, 256):
+        raise RuntimeError(f"the ARTS 1V deck gives Q, pole table, EDF = {q.shape[1]}, {n}, {log_fe.shape[1]}")
+
+    got, f32, f64 = lin_lookup.lin_lookup_fwd(q, table, x0, dx), lin_lookup.plain(q, table, x0, dx), lin_lookup.plain(q.double(), table.double(), x0, dx)
+    same = lin_cell(q, x0, dx, n)[1] == lin_cell(q.double(), x0, dx, n)[1]
+    scale = float(table.abs().max())
+    errs = {"value_vs_f32": float((got[0] - f32[0]).abs().max()), "value_vs_f64": float((got[0].double() - f64[0]).abs().max()),
+            "slope_vs_f32": float((got[1] - f32[1]).abs().max()), "slope_vs_f64_same_cell": float(((got[1].double() - f64[1]).abs() * same).max())}
+    ok = all(e <= LOOKUP_TOL * scale for e in errs.values())
+    emit({"phase": "kernel_check", "kernel": "lin_lookup_fwd", "shapes": "arts_1v", "queries": list(q.shape), "table": list(table.shape),
+          **errs, "queries_in_another_cell_in_f64": int((~same).sum()), "scale": scale, "tol": LOOKUP_TOL * scale, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"lin_lookup_fwd at the ARTS 1V shapes disagrees with its plain twins: {errs} against {LOOKUP_TOL * scale:.3e}")
+
+    v0, dv = float(meta[0, 0]), float(meta[0, 1])
+    near = (q >= v0 - 1.5 * dv) & (q <= v0 + (log_fe.shape[1] + 0.5) * dv)
+    got, f32 = cubic_lookup.cubic_lookup_fwd(q, log_fe, meta), cubic_lookup.plain(q, log_fe, meta)
+    f64 = cubic_lookup.plain(q.double(), log_fe.double(), meta.double())
+    scale = float(log_fe.abs().max())
+    errs = {f"{name}_vs_{ref_name}": float(((g.double() - r).abs() * near).max())
+            for name, g, refs in zip(("value", "dvalue_dt"), got, zip(f32, f64)) for ref_name, r in zip(("f32", "f64"), refs)}
+    ok = all(e <= LOOKUP_TOL * scale for e in errs.values())
+    emit({"phase": "kernel_check", "kernel": "cubic_lookup_fwd", "shapes": "arts_1v", "queries": list(q.shape), "table": list(log_fe.shape),
+          **errs, "queries_compared": int(near.sum()), "queries_beyond_1.5_cells": int((~near).sum()),
+          "scale": scale, "tol": LOOKUP_TOL * scale, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cubic_lookup_fwd at the ARTS 1V shapes disagrees with its plain twins: {errs} against {LOOKUP_TOL * scale:.3e}")
+
+
+def arts_other_forward(phase, cfg, sas, kernels, wrappers, plain_f32_tol=None):
+    """Another ARTS deck once, forward only, on the card against the CPU float64 plain path at
+    FWD_TOL; exactly ``kernels`` must launch, once each.  ``plain_f32_tol``: the deck's resonance is
+    so narrow that float32 itself misses FWD_TOL at the peak (the loss that
+    ``tests/test_torch_float32.py`` shows for the whole-shot deck at such parameters); the card is
+    then held to the plain forms run in float32 on the CPU, at that share of peak, and what both
+    miss of the float64 image is reported."""
+    import torch
+
+    batch = arts_batch(cfg)
+    with torch.no_grad():
+        diag, params = arts_models(cfg, sas, None)
+        read_and_zero(wrappers)
+        ThryE = diag(params, batch)[0]
+        torch.cuda.synchronize()
+        launches = read_and_zero(wrappers)
+        ref = (lambda d, p: d(p, batch)[0])(*arts_models(cfg, sas, "cpu"))
+        miss = lambda x: float((x.double().cpu() - ref).abs().max() / ref.abs().max())  # noqa: E731
+        err, tol, report = miss(ThryE), FWD_TOL, {}
+        if plain_f32_tol is not None:
+            plain32 = (lambda d, p: d(p, batch)[0])(*arts_models(cfg, sas, "cpu", torch.float32))
+            over = (ThryE.double().cpu() - ref).abs() > FWD_TOL * ref.abs().max()
+            report = {"compared_with": "the CPU float32 plain forward", "card_vs_f64_of_peak": err, "plain_f32_cpu_vs_f64_of_peak": miss(plain32),
+                      "pixels_over_fwd_tol_of_f64": int(over.sum()), "pixels": over.numel()}
+            err, tol = float((ThryE.cpu() - plain32).abs().max() / ref.abs().max()), plain_f32_tol
+    fe = cfg["parameters"]["electron"]["fe"]
+    ok = launches == {k: int(k in kernels) for k in wrappers} and bool(torch.isfinite(ThryE).all()) and err <= tol
+    emit({"phase": phase, "fe": {k: v for k, v in fe.items() if k != "active"}, "npts": cfg["other"]["npts"],
+          "image": list(ThryE.shape), "max_err_of_peak": err, "tol": tol, **report, "launches": launches, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"{phase}: {err:.3e} of peak against {tol:.3e}, launches {launches}")
+
+
 KERNELS = {
     "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84"),
     "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193"),
@@ -505,8 +930,11 @@ KERNELS = {
     "cubic_lookup_bwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:416"),
     "spectrum_tail_fwd": ("tsadar_tpu_torch/csrc/spectrum_tail.cu", "tsadar_tpu/ops/spectrum_kernel.py:380"),
     "spectrum_tail_bwd": ("tsadar_tpu_torch/csrc/spectrum_tail_bwd.cu", "tsadar_tpu/ops/spectrum_kernel.py:407"),
+    "chi_bilinear_fwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:132"),
+    "chi_bilinear_bwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:253"),
 }
 FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd")
+ARTS_KERNELS = ("chi_bilinear_fwd", "chi_bilinear_bwd")
 
 
 def read_and_zero(wrappers):
@@ -531,7 +959,7 @@ def main():
     sys.path.insert(0, str(ROOT))
 
     from tsadar_tpu_torch import ThomsonScatteringDiagnostic, get_scattering_angles
-    from tsadar_tpu_torch.ops import build, cubic_lookup, lin_lookup, spectrum_tail
+    from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, spectrum_tail
 
     # 1. device
     smi = subprocess.run(
@@ -561,7 +989,11 @@ def main():
         "cubic_lookup_bwd": cubic_lookup.cubic_lookup_bwd,
         "spectrum_tail_fwd": spectrum_tail.spectrum_tail_fwd,
         "spectrum_tail_bwd": spectrum_tail.spectrum_tail_bwd,
+        "chi_bilinear_fwd": chi_bilinear.chi_bilinear_fwd,
+        "chi_bilinear_bwd": chi_bilinear.chi_bilinear_bwd,
     }
+    arts_cfg, arts_sas = load_arts_deck()
+    arts_diag, arts_params = arts_models(arts_cfg, arts_sas, None)
 
     with torch.no_grad():
         # 3. every kernel against its plain twin, at the main path's shapes
@@ -569,6 +1001,7 @@ def main():
         rows = check_lookups(rng)
         rows["spectrum_tail_fwd"] = check_tail(diag, params)
         rows["spectrum_tail_bwd"] = check_tail_bwd(diag, params, rng)
+        rows |= check_chi_bilinear(rng, arts_diag, arts_params)
 
         # 4. the first main path: the whole-shot forward through the kernels
         read_and_zero(wrappers)
@@ -614,7 +1047,7 @@ def main():
     chunk_ms = [1e3 * s / n for s, n in zip(record["chunk_seconds"], record["chunk_steps"])]
     medians = {k: float(np.median(v)) for k, v in errors.items()}
     fit_ok = (
-        all(n >= FIT_STEPS for n in fit_launches.values())
+        all(fit_launches[k] >= FIT_STEPS for k in wrappers if k not in ARTS_KERNELS)
         and bool(np.isfinite(losses).all())
         and best_loss <= FIT_LOSS_DROP * losses[0]
         and all(medians[k] <= tol for k, tol in FIT_TOL.items())
@@ -635,10 +1068,28 @@ def main():
     emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, fit_batch), few, ms_per_step,
                      "fit_profile", "step"))
 
+    # 7. the third main path: the ARTS 2V forward, its gradient and the angular fit through K7 and K8
+    arts_fwd_launches, arts_target = arts_forward(arts_cfg, arts_sas, arts_diag, arts_params, wrappers, smi)
+    arts_grad_check(arts_cfg, arts_sas, arts_target, wrappers)
+    arts_fit_launches, arts_steps = arts_fit(arts_cfg, arts_sas, arts_target, wrappers, smi)
+    # the deck's own EDF family (spherical harmonics with the Mora-Yahi f1, nvx 128, nvr 64), and the
+    # ARTS 1V deck (a DLM EDF on nvx 256 through the unreduced 1V spectrum: K1 and K3 at 2048 x 241 queries)
+    arts_other_forward("arts_spherical_harmonics_forward", *load_arts_deck(arbitrary=False), ("chi_bilinear_fwd",), wrappers)
+    arts_1v = load_arts_deck(arbitrary=False, names=ARTS_1V_DECK)
+    with torch.no_grad():
+        check_lookups_arts_1v(*arts_1v)
+    arts_other_forward("arts_1v_forward", *arts_1v, ("lin_lookup_fwd", "cubic_lookup_fwd"), wrappers, plain_f32_tol=ARTS_1V_F32_TOL)
+
+    def launches_of(k):
+        """(on its main path, in that path's fit, fit steps): the 1V whole-shot path or the ARTS path."""
+        if k in ARTS_KERNELS:
+            return (arts_fwd_launches if k == "chi_bilinear_fwd" else arts_fit_launches)[k], arts_fit_launches[k], arts_steps
+        return (fwd_launches if k in FORWARD_KERNELS else fit_launches)[k], fit_launches[k], FIT_STEPS
+
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-         "launches": fwd_launches[k] if k in FORWARD_KERNELS else fit_launches[k], "fit_launches": fit_launches[k],
-         "launches_per_fit_step": fit_launches[k] / FIT_STEPS, **rows[k]}
+         "launches": launches_of(k)[0], "fit_launches": launches_of(k)[1],
+         "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2], **rows[k]}
         for k in wrappers
     ]})
     print(smi, flush=True)

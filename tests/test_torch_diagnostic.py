@@ -109,7 +109,8 @@ def test_1d_forward_with_blue_red_normalization_matches_jax():
 
 
 def test_angular_spectype_is_not_ported_yet():
+    """Spectype "angular" itself is not: ARTS runs as "angular_full" (``tests/test_torch_arts_forward.py``)."""
     cfg = set_forward_ranges(merge_configs(*_decks("1d-")))
-    cfg["other"]["extraoptions"]["spectype"] = "angular_full"
+    cfg["other"]["extraoptions"]["spectype"] = "angular"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ThomsonScatteringDiagnostic(cfg, {"sa": np.ones(10), "weights": np.ones(10)}, device="cpu")

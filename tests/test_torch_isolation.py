@@ -44,8 +44,11 @@ def _clean_env():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, tsadar_tpu_torch, tsadar_tpu_torch.convert\n"
-        "from tsadar_tpu_torch.ops import build, cubic_lookup, lin_lookup, spectrum_tail\n"
+        "from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, spectrum_tail\n"
         "from tsadar_tpu_torch.inverse import loops, loss\n"
+        "from tsadar_tpu_torch.core.params import distributions, spherical, ts_params\n"
+        "from tsadar_tpu_torch.core.physics import form_factor, interp, irf, spectrum\n"
+        "from tsadar_tpu_torch.utils import calibration\n"
         f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
@@ -57,7 +60,15 @@ def test_entry_points_default_to_the_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device=None legitimately resolves to it")
     cfg = {"parameters": {}, "other": {"extraoptions": {"spectype": "temporal"}}}
+    angular = {"parameters": {}, "other": {"extraoptions": {"spectype": "angular_full"}, "ang_res_unit": 1},
+               "optimizer": {"y_norm": False, "method": "adam"}, "data": {"lineouts": {"start": 0, "end": 1}}}
+    arts_sas = {"sa": np.ones(3), "weights": np.ones((4, 3)), "angAxis": np.ones(4)}
+    arts_data = {k: np.zeros((1, 1)) for k in ("e_data", "i_data", "e_amps", "i_amps", "noiseE", "noiseI")}
     for call in (
+        lambda: port.ThomsonScatteringDiagnostic(angular, arts_sas),
+        lambda: port.ThomsonParams.create({}, 1, batch=False),
+        lambda: port.LossFunction(angular, arts_sas, {}),
+        lambda: port.angular_optax(angular, arts_data, arts_sas),
         lambda: resolve_device(None),
         lambda: port.ThomsonScatteringDiagnostic(cfg, {"sa": np.ones(10), "weights": np.ones(10)}),
         lambda: port.ThomsonParams.create({}, 2),
@@ -73,6 +84,15 @@ def test_entry_points_default_to_the_gpu():
 def test_the_port_covers_the_inverse_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"tsadar_tpu_torch/inverse/loss.py", "tsadar_tpu_torch/inverse/loops.py", "chip_smoke.py"} <= names
+
+
+def test_the_port_covers_the_arts_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"tsadar_tpu_torch/ops/chi_bilinear.py", "tsadar_tpu_torch/core/params/spherical.py"} <= names
+    assert (ROOT / "tsadar_tpu_torch" / "csrc" / "chi_bilinear.cu").is_file()
+    from tsadar_tpu_torch.ops import build
+
+    assert "chi_bilinear" in build.SOURCES and callable(port.angular_optax)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

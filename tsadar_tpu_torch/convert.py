@@ -39,10 +39,15 @@ def thomson_params_from_jax(param_cfg, leaves, activate=False, device=None, dtyp
       param_cfg: the deck's ``parameters`` section the JAX parameters were made from.
       leaves: mapping of JAX ``keystr`` leaf path -> numpy array, every leaf.
       activate: the ``activate`` flag the JAX parameters were made with.
+
+    Every leaf crosses by its path, the 2V distributions' too (``fval``,
+    ``normed_m``, the flm modules' ``log_10_LT``, ``flm_sign``/``flm_mag`` and
+    the MLPs' ``weights[i][j]``): JAX's seeded MLP draws replace the port's own.
     """
     state = {state_key(path): torch.tensor(np.asarray(v)) for path, v in leaves.items()}
-    num_params = state["electron.params.normed.Te"].shape[0]
-    params = ThomsonParams(param_cfg, num_params, activate)
+    Te = state["electron.params.normed.Te"]
+    batch = Te.dim() > 0  # unbatched JAX parameters (the angular fit's) hold 0-d scalars
+    params = ThomsonParams(param_cfg, Te.shape[0] if batch else 1, activate, batch)
     params.load_state_dict(state, strict=True)
     device = resolve_device(device)
     return params.to(device=device, dtype=dtype or working_dtype(device))

@@ -1,4 +1,5 @@
-from .distributions import DLM1V, Maxwellian1V, velocity_grid
+from .distributions import DLM1V, Arbitrary2V, Maxwellian1V, velocity_grid
+from .spherical import SphericalHarmonics
 from .ts_params import ThomsonParams, get_filter_spec
 
-__all__ = ["DLM1V", "Maxwellian1V", "ThomsonParams", "get_filter_spec", "velocity_grid"]
+__all__ = ["DLM1V", "Arbitrary2V", "Maxwellian1V", "SphericalHarmonics", "ThomsonParams", "get_filter_spec", "velocity_grid"]

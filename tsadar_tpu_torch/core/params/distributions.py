@@ -1,11 +1,14 @@
-"""1V electron distribution functions as ``nn.Module``s over a lineout batch.
+"""Electron distribution functions as ``nn.Module``s: 1V over a lineout batch, 2V pointwise.
 
 Counterparts of ``tsadar_tpu.core.params.distributions``: ``DLM1V`` (the
 Dum-Langdon-Matte super-Gaussian family, differentiable in its shape
-parameter m through a projected table) and ``Maxwellian1V``.  The trainable
-value is the normalized m, one per lineout; grids and tables are buffers.
+parameter m through a projected table), ``Maxwellian1V``, and ``Arbitrary2V``
+(a pointwise-learnable f(vx, vy), unbatched).  The trainable value is the
+normalized m, one per lineout, or the 2D array ``fval``; grids and tables are
+buffers.
 """
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -72,11 +75,11 @@ class DLM1V(nn.Module):
     m_scale = 3.0
     m_shift = 2.0
 
-    def __init__(self, dist_cfg, num_params, activate):
+    def __init__(self, dist_cfg, num_params, activate, batch=True):
         super().__init__()
         self.activated = bool(activate and dist_cfg.get("active", False))
         normed = inv_act((dist_cfg["params"]["m"]["val"] - self.m_shift) / self.m_scale, self.activated)
-        self.normed_m = nn.Parameter(torch.full((num_params,), float(normed), dtype=torch.float64))
+        self.normed_m = nn.Parameter(torch.full((num_params,) if batch else (), float(normed), dtype=torch.float64))
         vx, ms, table = _dlm_projected_table(dist_cfg["nvx"])
         self.register_buffer("vx", torch.as_tensor(vx))
         self.register_buffer("m_ax", torch.as_tensor(ms))
@@ -90,17 +93,18 @@ class DLM1V(nn.Module):
 
     def forward(self):
         m = self._unnormed_m()
-        fdlm = _interp_columns(m, self.m_ax, self.f_vx_m)
+        fdlm = _interp_columns(m.reshape(-1), self.m_ax, self.f_vx_m)
         dv = self.vx[1] - self.vx[0]
-        return fdlm / torch.sum(fdlm, dim=-1, keepdim=True) / dv
+        fe = fdlm / torch.sum(fdlm, dim=-1, keepdim=True) / dv
+        return fe if m.dim() else fe[0]  # unbatched: one EDF [nvx]
 
 
 class Maxwellian1V(nn.Module):
     """Closed-form Maxwellian, no trainables."""
 
-    def __init__(self, dist_cfg, num_params, activate):
+    def __init__(self, dist_cfg, num_params, activate, batch=True):
         super().__init__()
-        self.num_params = num_params
+        self.num_params = num_params if batch else None
         self.register_buffer("vx", torch.as_tensor(velocity_grid(dist_cfg["nvx"])))
 
     def get_unnormed_params(self):
@@ -110,4 +114,48 @@ class Maxwellian1V(nn.Module):
         dv = self.vx[1] - self.vx[0]
         f = torch.exp(-(self.vx**2) / 2)
         f = f / torch.sum(f) / dv
-        return f.expand(self.num_params, -1)
+        return f if self.num_params is None else f.expand(self.num_params, -1)
+
+
+def gamma(x):
+    """Gamma function of a positive tensor, differentiable: exp(lgamma(x))."""
+    return torch.exp(torch.lgamma(x))
+
+
+def _super_gaussian_3d_on_axis(vx, m, vth):
+    """3D super-Gaussian of order m (a tensor) evaluated on-axis at the speeds |vx|."""
+    alpha = torch.sqrt(3.0 * gamma(3.0 / m) / 2.0 / gamma(5.0 / m))
+    cst = m / (4.0 * torch.pi * alpha**3.0 * gamma(3.0 / m))
+    return cst / vth**3.0 * torch.exp(-((torch.abs(vx) / alpha / vth) ** m))
+
+
+class Arbitrary2V(nn.Module):
+    """Pointwise-learnable f(vx, vy) on the square grid vx x vx, unbatched.
+
+    ``fval`` [nvx, nvx] holds sqrt(-log10 f) (``learn_log``) or sqrt(f) of a
+    super-Gaussian of order ``init_m``; calling the module squares it, undoes
+    the logarithm and normalizes to unit integral.
+    """
+
+    def __init__(self, dist_cfg, num_params, activate):
+        super().__init__()
+        vx = torch.as_tensor(velocity_grid(dist_cfg["nvx"]))
+        self.learn_log = bool(dist_cfg["params"]["learn_log"])
+        m = torch.as_tensor(float(dist_cfg["params"]["init_m"]), dtype=torch.float64)
+        vmag = torch.sqrt(vx[:, None] ** 2 + vx[None, :] ** 2)
+        fdlm = _super_gaussian_3d_on_axis(vmag, m, vth=math.sqrt(2.0))
+        fdlm = fdlm / torch.sum(fdlm) / (vx[1] - vx[0]) ** 2
+        if self.learn_log:
+            fdlm = -torch.log10(fdlm)
+        self.fval = nn.Parameter(torch.sqrt(fdlm))
+        self.register_buffer("vx", vx)
+
+    def get_unnormed_params(self):
+        return {"f": self()}
+
+    def forward(self):
+        f = self.fval**2.0
+        if self.learn_log:
+            f = torch.pow(10.0, -f)
+        dv = self.vx[1] - self.vx[0]
+        return f / torch.sum(f) / dv**2.0

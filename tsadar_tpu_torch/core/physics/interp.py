@@ -1,7 +1,7 @@
 """Uniform-grid lookups: the plain PyTorch forms and the dispatch to the kernels.
 
-Two per-row lookups carry the 1V hot path, each with a hand-written CUDA
-kernel in ``tsadar_tpu_torch/ops``:
+Two per-row lookups carry the 1V hot path and one fused lookup the 2V (ARTS)
+path, each with a hand-written CUDA kernel in ``tsadar_tpu_torch/ops``:
 
 * ``lin_lookup``: linear interpolation with ``jnp.interp`` edge clamping (the
   chi_R pole table at the electron phase velocities); the math of
@@ -10,12 +10,19 @@ kernel in ``tsadar_tpu_torch/ops``:
   unclamped-t edge extrapolation (the log-EDF at the phase velocities); the
   math of ``interp1d_cubic_blocked``'s forward.
 
-``lin_lookup`` and ``cubic_lookup`` are the differentiable lookups of
-``tsadar_tpu_torch/ops``: a CPU tensor takes the plain forms below, a CUDA
-tensor the kernels, forward and backward -- there is no fallback from one to
-the other.  ``interp1d_cubic_matmul`` (the
+* ``chi_bilinear_lookup``: the stacked (f1d | df1d | chi_R) angle tables of the
+  2V path at (beta, |xi_e|): periodic linear interpolation over the rows, then
+  clamped linear interpolation inside each column segment; the math of
+  ``periodic_linear_rowmix`` followed by ``select_columns_linear``.
+
+``lin_lookup``, ``cubic_lookup`` and ``chi_bilinear_lookup`` are the
+differentiable lookups of ``tsadar_tpu_torch/ops``: a CPU tensor takes the
+plain forms, a CUDA tensor the kernels, forward and backward -- there is no
+fallback from one to the other.  ``interp1d_cubic_matmul`` (the
 EDF on the fixed 1024-point xi grid) stays a plain matmul, as in JAX.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -114,6 +121,58 @@ def cubic_lookup(q, table, meta):
     from ...ops.cubic_lookup import CubicLookup
 
     return CubicLookup.apply(q, table, meta)
+
+
+def rowmix_indices(R, beta_q):
+    """(ib0, ib1, wb): the two rows of a periodic grid 2 pi r / R around beta_q, and the weight of the second.
+
+    The remainder takes the divisor's sign, so negative angles wrap upwards;
+    where (beta mod 2 pi) R / 2 pi rounds up to R itself the rows are (0, 1)
+    with weight 0.
+    """
+    bpos = torch.remainder(beta_q, 2.0 * math.pi) * (R / (2.0 * math.pi))
+    ifl = torch.floor(bpos)
+    ib0 = torch.remainder(ifl.long(), R)
+    return ib0, torch.remainder(ib0 + 1, R), bpos - ifl
+
+
+def col_cell(v_q, v0, dv, ns):
+    """(iv0, wv, inside) of the clamped linear lookup on the grid v0 + dv * arange(ns).
+
+    ``inside`` (in the dtype of v_q) is 1 strictly inside the grid and 0 where
+    the position was clamped.  ``v0`` and ``dv`` are tensors, for true division
+    (see ``lin_cell``).
+    """
+    raw = (v_q - v0) / dv
+    vpos = torch.clamp(raw, 0.0, ns - 1.0)
+    iv0 = torch.clamp(torch.floor(vpos), max=ns - 2.0)
+    return iv0.long(), vpos - iv0, ((raw > 0.0) & (raw < ns - 1.0)).to(v_q.dtype)
+
+
+def periodic_linear_rowmix(T, beta_q):
+    """Row-interpolate T [R, C] at the angles beta_q [Q]: out[q] = lerp(T[ib0], T[ib1], wb), [Q, C]."""
+    ib0, ib1, wb = rowmix_indices(T.shape[0], beta_q.reshape(-1))
+    out = (1.0 - wb)[:, None] * T[ib0] + wb[:, None] * T[ib1]
+    return out.reshape(beta_q.shape + T.shape[1:])
+
+
+def select_columns_linear(S, v0, dv, v_q):
+    """Per-row linear column interpolation: out[q] = lerp(S[q, iv0], S[q, iv0 + 1], wv), clamped at the ends."""
+    v0, dv = (torch.as_tensor(v, dtype=S.dtype, device=S.device) for v in (v0, dv))
+    iv0, wv, _ = col_cell(v_q, v0, dv, S.shape[-1])
+    f0 = torch.gather(S, -1, iv0[..., None])[..., 0]
+    f1 = torch.gather(S, -1, iv0[..., None] + 1)[..., 0]
+    return f0 * (1.0 - wv) + f1 * wv
+
+
+def chi_bilinear_lookup(Tcat, beta_q, xq, v0x, dvx, v0p, dvp):
+    """Differentiable fused lookup (fe, dfe, chiR), each shaped like beta_q, of the stacked 2V tables
+    Tcat [R, 3 nvx - 2]: ``ops.chi_bilinear.ChiBilinear`` (the plain forms on the CPU, the K7/K8
+    kernels on the card).  (v0x, dvx) is the velocity grid, (v0p, dvp) the pole grid; they get no gradient."""
+    from ...ops.chi_bilinear import ChiBilinear
+
+    meta = torch.stack([torch.as_tensor(v, dtype=Tcat.dtype, device=Tcat.device) for v in (v0x, dvx, v0p, dvp)])
+    return ChiBilinear.apply(Tcat, beta_q, xq, meta.detach())
 
 
 def _cubic_W(xq, x):

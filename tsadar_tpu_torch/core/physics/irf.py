@@ -2,7 +2,8 @@
 
 Counterpart of ``tsadar_tpu.core.physics.irf`` (electron and ion features)
 for a batch of lineouts: spectra are [B, L], the wavelength axis [L] is shared
-and per-lineout scalars are [B].
+and per-lineout scalars are [B]; and the 2D (angular x spectral) response of
+one ARTS image [fine angles, L] with 0-d scalars.
 """
 
 import math
@@ -69,4 +70,24 @@ def add_electron_IRF(config, lamAxisE, modlE, amps, TSins):
         lamAxisE = _rebin(lamAxisE)
         ThryE = amps.reshape(ThryE.shape[0], -1) * ThryE / torch.amax(ThryE, dim=-1, keepdim=True)
         ThryE = torch.where(lamAxisE < lam, amp1 * ThryE, amp2 * ThryE)
+    return lamAxisE, ThryE
+
+
+def add_ATS_IRF(config, sas, lamAxisE, modlE, amps, TSins):
+    """2D Gaussian IRF for ARTS: modlE [n_ang_fine, L], ``sas["angAxis"]`` [n_ang_fine], unbatched scalars."""
+    widths = config["other"]["PhysParams"]["widIRF"]
+    inst_func_lam = _gaussian(lamAxisE, widths["spect_FWHM_ele"] / 2.3548)
+    inst_func_ang = _gaussian(sas["angAxis"], widths["ang_FWHM_ele"] / 2.3548)
+
+    # convolve along the angular axis, then along the spectral axis
+    ThryE = _conv_same(modlE.T, inst_func_ang).T
+    ThryE = _conv_same(ThryE, inst_func_lam)
+    # amax splits the gradient evenly among ties, as jnp.amax does (max(dim) would pick one)
+    ThryE = torch.amax(modlE, dim=1, keepdim=True) / torch.amax(ThryE, dim=1, keepdim=True) * ThryE
+
+    if config["other"]["PhysParams"]["norm"] > 0:
+        blue = lamAxisE < TSins["general"]["lam"]
+        whole_max = lambda mask: torch.amax(torch.where(mask, ThryE, -torch.inf))  # noqa: E731  over the whole image
+        g = TSins["general"]
+        ThryE = torch.where(blue, g["amp1"] * (ThryE / whole_max(blue)), g["amp2"] * (ThryE / whole_max(~blue)))
     return lamAxisE, ThryE

@@ -1,8 +1,11 @@
-"""Spectrum assembly for 1V, non-angular spectypes: EPW + IAW features, notches.
+"""Spectrum assembly: EPW + IAW features, aperture weighting, notch filters.
 
-Counterpart of ``tsadar_tpu.core.physics.spectrum.SpectrumModel`` on its
-fused-reduce branch (``FormFactor.reduced_1v``), for a batch of lineouts.  The
-angular (ARTS) and 2V paths are not ported yet.
+Counterpart of ``tsadar_tpu.core.physics.spectrum.SpectrumModel``: its
+fused-reduce branch (``FormFactor.reduced_1v``) for a batch of 1V lineouts,
+and its composed branch for one angular (ARTS) image: the unreduced spectrum
+(``FormFactor.calc_in_2D``, or the unreduced 1V ``FormFactor.__call__``), the
+mean over gradient points, and for ``angular_full`` the product with the
+fine-angle weight matrix, which gives the [angle, wavelength] image.
 
 Parity quirk kept on purpose: the angle weights are ``weights[0]`` of the
 beam's 1-D aperture-weight vector, i.e. ONE scalar that multiplies the plain
@@ -23,47 +26,63 @@ class SpectrumModel:
     def __init__(self, config: Dict, scattering_angles: Dict, device, dtype):
         self.config = config
         other = config["other"]
-        if config["parameters"]["electron"]["fe"]["dim"] != 1:
-            raise NotImplementedError("the PyTorch port runs 1V distributions only so far (ROADMAP.md §1 item 12)")
-        if "angular" in other["extraoptions"]["spectype"]:
-            raise NotImplementedError("angular (ARTS) spectra are not ported yet (ROADMAP.md §1 item 12)")
+        self.dim = config["parameters"]["electron"]["fe"]["dim"]
+        self.angular_full = other["extraoptions"]["spectype"] == "angular_full"
         grad_cfg = config["parameters"]["general"]
         if grad_cfg["Te_gradient"]["num_grad_points"] != grad_cfg["ne_gradient"]["num_grad_points"]:
             raise ValueError("Number of gradient points for Te and ne must be the same")
         num_grad_points = grad_cfg["Te_gradient"]["num_grad_points"]
 
-        self.weight = torch.as_tensor(scattering_angles["weights"], dtype=dtype, device=device)[0]
+        weights = torch.as_tensor(scattering_angles["weights"], dtype=dtype, device=device)
+        self.weight = weights[0]
+        # ARTS: the whole [fine angle, angle] weight matrix, for the electron feature's image
+        self.weight_matrix = weights if self.angular_full else None
+        angles_2v = {} if self.dim < 2 else dict(ud_ang=grad_cfg["ud"]["angle"], va_ang=grad_cfg["Va"]["angle"])
 
         def build(lam_range, lam_shift):
-            return FormFactor(lam_range, other["npts"], lam_shift, scattering_angles, num_grad_points, device, dtype)
+            return FormFactor(lam_range, other["npts"], lam_shift, scattering_angles, num_grad_points, device, dtype,
+                              **angles_2v)
 
         self.electron_form_factor = build(other["lamrangE"], config["data"]["ele_lam_shift"])
         self.ion_form_factor = build(other["lamrangI"], 0) if other["extraoptions"]["load_ion_spec"] else None
 
+    def _reduced(self, form_factor, all_params, image=False):
+        """(reduced spectrum, wavelength axis [L] in nm) of one feature; ``image``: the ARTS
+        [fine angle, wavelength] image through the weight matrix instead of the weighted angle sum."""
+        if self.dim == 1 and not self.angular_full:
+            reduced, lam_axis = form_factor.reduced_1v(all_params, self.weight)
+            return reduced, lam_axis * 1e7
+        skw, lam_axis = form_factor(all_params) if self.dim == 1 else form_factor.calc_in_2D(all_params)  # [G, L, A]
+        grad_averaged = torch.mean(skw, dim=0)
+        if image:
+            return torch.matmul(self.weight_matrix, grad_averaged.T), lam_axis * 1e7
+        return torch.sum(grad_averaged * self.weight, dim=1), lam_axis * 1e7
+
     def __call__(self, all_params: Dict):
         """(ele_reduced [B, L], ion_reduced [B, L], lam_axis_ele [L], lam_axis_ion [L]) in nm.
 
-        A feature that is switched off gives zeros of shape [B, 1].
+        A feature that is switched off gives zeros of shape [B, 1] ([1] for
+        unbatched parameters); a 2V ``angular_full`` electron feature is the
+        image [fine angles, L].
         """
         lam_axis_ion, ion_reduced = self.ion_spectrum(all_params)
         lam_axis_ele, ele_reduced = self.electron_spectrum(all_params)
         return ele_reduced, ion_reduced, lam_axis_ele, lam_axis_ion
 
     def _off(self, all_params):
-        z = torch.zeros_like(all_params["general"]["lam"])[:, None]
+        z = torch.zeros_like(all_params["general"]["lam"])[..., None]
         return z, z
 
     def ion_spectrum(self, all_params):
         if self.ion_form_factor is None:
             return self._off(all_params)
-        reduced, lam_axis = self.ion_form_factor.reduced_1v(all_params, self.weight)
-        return lam_axis * 1e7, reduced
+        reduced, lam_axis = self._reduced(self.ion_form_factor, all_params)
+        return lam_axis, reduced
 
     def electron_spectrum(self, all_params):
         if not self.config["other"]["extraoptions"]["load_ele_spec"]:
             return self._off(all_params)
-        reduced, lam_axis = self.electron_form_factor.reduced_1v(all_params, self.weight)
-        lam_axis = lam_axis * 1e7
+        reduced, lam_axis = self._reduced(self.electron_form_factor, all_params, image=self.angular_full)
         reduced = self._probe_notch(reduced, lam_axis, all_params["general"]["lam"])
         band = self._filter_band()
         if band is not None:
@@ -74,7 +93,7 @@ class SpectrumModel:
         """iawoff: zero the ion feature within 3 nm of each lineout's probe line."""
         if not self.config["other"]["iawoff"]:
             return spectrum
-        near_probe = torch.abs(lam_axis - probe_lam[:, None]) < PROBE_NOTCH_HALF_WIDTH_NM
+        near_probe = torch.abs(lam_axis - probe_lam[..., None]) < PROBE_NOTCH_HALF_WIDTH_NM
         return torch.where(near_probe, 0.0, spectrum)
 
     def _filter_band(self):

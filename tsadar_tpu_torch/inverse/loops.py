@@ -1,14 +1,17 @@
-"""Optimizer loops for 1D (batched-lineout) fitting.
+"""Optimizer loops: 1D (batched-lineout) fitting and the angular (ARTS) fit.
 
-Counterpart of ``tsadar_tpu.inverse.loops`` for ``method: adam``:
-``_1d_adam_loop_`` (adam epochs with best-so-far tracking) and ``one_d_loop``
-(the batch dispatch with the optional sequential warm start).  The scipy and
-L-BFGS loops and the angular fit are not ported yet (ROADMAP.md §1 items 11
-and 12).
+Counterpart of ``tsadar_tpu.inverse.loops``: ``_1d_adam_loop_`` (adam epochs
+with best-so-far tracking), ``one_d_loop`` (the batch dispatch with the
+optional sequential warm start, ``method: adam``) and ``angular_optax`` with
+its step loop ``_angular_loop_`` (one ARTS image, ``adam`` or ``rmsprop``,
+early stopping).  The scipy and L-BFGS
+loops are not ported yet (ROADMAP.md §1 item 11).
 
 Adam is ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8): the same update as
-``optax.adam``.  The whole lineout batch is one set of [B] parameters, so one
-step is one forward and one backward of the batch; there is no mesh.
+``optax.adam``.  ``optax.rmsprop`` (decay 0.9, eps 1e-8 inside the root, zero
+initial scale) is not ``torch.optim.RMSprop`` (eps outside the root): it is
+``RMSprop`` below.  The whole lineout batch is one set of [B] parameters, so
+one step is one forward and one backward of the batch; there is no mesh.
 """
 
 import copy
@@ -69,7 +72,7 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
         return np.inf, ts_params
 
     batch = loss_fn.device_batch(batch)  # once per fit, not per step
-    opt = torch.optim.Adam(leaves, lr=config["optimizer"]["learning_rate"], betas=(0.9, 0.999), eps=1e-8)
+    opt = _optimizer("adam", leaves, config["optimizer"]["learning_rate"])
     best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
     best_rows = torch.full((batch["e_data"].shape[0],), np.inf, dtype=dtype, device=dev)
     best = [p.detach().clone() for p in leaves]
@@ -129,3 +132,134 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
         if config["optimizer"].get("sequential", False):
             previous_weights = best_weights
     return all_weights, overall_loss, loss_fn
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)``: nu = decay nu + (1 - decay) g^2 from nu = 0, p -= lr g / sqrt(nu + eps)."""
+
+    def __init__(self, params, lr, decay=0.9, eps=1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                nu = self.state[p].setdefault("nu", torch.zeros_like(p))
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
+                p.addcdiv_(p.grad, torch.sqrt(nu + group["eps"]), value=-group["lr"])
+
+
+def _optimizer(method, leaves, lr):
+    if method == "adam":
+        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if method == "rmsprop":
+        return RMSprop(leaves, lr=lr)
+    raise NotImplementedError(f"optimizer method {method!r} is not ported yet (ROADMAP.md §1 item 11)")
+
+
+def _angular_batch(all_data, sl):
+    """ARTS batch for the resolution-unit window ``sl``: the electron channels are windowed,
+    the ion channels stay whole except the noise window."""
+    return {
+        "e_data": all_data["e_data"][sl, :],
+        "e_amps": all_data["e_amps"][sl, :],
+        "noise_e": all_data["noiseE"][sl, :],
+        "i_data": all_data["i_data"],
+        "i_amps": all_data["i_amps"],
+        "noise_i": all_data["noiseI"][sl, :],
+    }
+
+
+def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
+    """ARTS fit of one image with early stopping: ``(best parameters, last counted epoch's loss, loss function)``.
+
+    The set-up of the JAX loop, then ``_angular_loop_``.  ``config`` is changed
+    as there: batch size 1, and the lineout window divided by
+    ``other.ang_res_unit``.  The parameters are unbatched, made from the deck.
+    Checkpoints, state snapshots and the tracking server's metrics are left
+    out.  ``record``: see ``_angular_loop_``.
+    """
+    config["optimizer"]["batch_size"] = 1
+    lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
+    lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
+    if isinstance(config["data"].get("shotnum"), list):
+        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 12)")
+    batch = _angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
+
+    loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
+    dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
+    ts_params = ThomsonParams.create(config["parameters"], 1, activate=True, device=dev, dtype=dtype, batch=False)
+    epoch_loss = _angular_loop_(config, loss_fn, ts_params, batch, record=record)
+    return ts_params, epoch_loss, loss_fn
+
+
+def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None):
+    """The steps of the ARTS fit: leaves the best-so-far parameters in ``ts_params`` (unbatched) and
+    returns the last counted epoch's loss.
+
+    The semantics of the JAX loop.  Each step's pre-update loss is credited to
+    the post-update parameters; best-so-far (from the JAX loop's initial
+    100.0) lives on the device; the host reads the losses once per
+    ``optimizer.chunk_size`` steps (default 8) and replays the per-epoch stop
+    counters over them: more than five improvements smaller than 1e-6 in a
+    row, or more than five rising epochs, end the fit, chunk-granular.
+    ``record`` (a dict), if given, gets ``losses`` (every counted epoch),
+    ``chunk_seconds`` and ``chunk_steps``.
+    """
+    dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
+    trainable = get_filter_spec(config["parameters"], ts_params)
+    leaves = list(trainable.values())
+    opt = _optimizer(config["optimizer"]["method"], leaves, config["optimizer"]["learning_rate"])
+
+    batch = loss_fn.device_batch(batch)  # once per fit, not per step
+    best_loss_dev = torch.full((), 100.0, dtype=dtype, device=dev)
+    best = [p.detach().clone() for p in leaves]
+    epoch_loss, best_loss = 0.0, 100.0
+    stalled_epochs = rising_epochs = 0
+    chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
+    num_epochs = config["optimizer"]["num_epochs"]
+    i_epoch, stop = 0, False
+    while i_epoch < num_epochs and not stop:
+        length = min(chunk, num_epochs - i_epoch)
+        t0 = time.perf_counter()
+        values = []
+        for _ in range(length):
+            (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+            for p, g in zip(leaves, grads.values()):
+                p.grad = g
+            opt.step()
+            with torch.no_grad():
+                improved = value < best_loss_dev
+                best_loss_dev = torch.where(improved, value, best_loss_dev)
+                best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
+            values.append(value)
+        losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
+        n_counted = length  # the epochs a per-epoch loop would have reached
+        for j, epoch_loss in enumerate(losses):
+            if epoch_loss < best_loss:
+                improvement, best_loss = best_loss - epoch_loss, epoch_loss
+                if improvement < 1e-6:
+                    stalled_epochs += 1
+                    stop = stalled_epochs > 5  # the change in loss stayed under 1e-6
+                else:
+                    stalled_epochs = rising_epochs = 0
+            elif epoch_loss > best_loss:
+                rising_epochs += 1
+                stop = rising_epochs > 5  # the loss keeps rising
+            if stop:
+                n_counted = j + 1
+                break
+        if record is not None:
+            record.setdefault("losses", []).extend(losses[:n_counted])
+            record.setdefault("chunk_seconds", []).append(time.perf_counter() - t0)
+            record.setdefault("chunk_steps", []).append(length)
+        i_epoch += length
+
+    with torch.no_grad():
+        for p, b in zip(leaves, best):
+            p.copy_(b)
+    for p in leaves:
+        p.grad = None
+    return epoch_loss

@@ -1,4 +1,4 @@
-"""Loss function of the inverse problem, for a batch of lineouts.
+"""Loss function of the inverse problem, for a batch of lineouts or one angular (ARTS) image.
 
 Counterpart of ``tsadar_tpu.inverse.loss``: fit-range windows for the IAW,
 EPW-blue and EPW-red features, the loss functionals (l1, l2, log-cosh,
@@ -9,9 +9,12 @@ marks the active leaves ``requires_grad`` (``core.params.get_filter_spec``)
 and ``value_and_grad`` differentiates with ``torch.autograd``; on the card the
 backward runs through the hand-written kernels.
 
+The angular arm is the same code on unbatched parameters: ``e_data`` holds the
+lineout window of the image in resolution units [n_units, wavelengths].
+
 Not ported yet (each raises ``NotImplementedError``): the multiplexed two-shot
-angular loss (ROADMAP.md §1 item 12), the Hessian (item 10) and the flattened
-scipy interface (item 11).
+angular loss with its EDF rotation and the 2V moment penalties (ROADMAP.md §1
+item 12), the Hessian (item 10) and the flattened scipy interface (item 11).
 """
 
 import math

@@ -22,7 +22,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("lin_lookup", "cubic_lookup", "spectrum_tail", "spectrum_tail_bwd")
+SOURCES = ("lin_lookup", "cubic_lookup", "spectrum_tail", "spectrum_tail_bwd", "chi_bilinear")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,10 +1,12 @@
 """Probe-beam scattering angles and aperture weights of the OMEGA Thomson diagnostic.
 
 A copy of the beam table of ``tsadar_tpu.utils.data_handling.calibration``
-(instrument facts, kept verbatim).  The ARTS (angular) geometry is not ported
-yet.
+(instrument facts, kept verbatim), and its angular (ARTS) arm: the fine
+scattering angles, the [camera angle, fine angle] weight matrix and the camera's
+angle axis, from the port's own copy of ``arts_angular.npz``.
 """
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -73,8 +75,38 @@ def sa_lookup(beam: str) -> Dict:
     return dict(sa=np.linspace(lo, hi, 10), weights=np.array(weights))
 
 
+_EXTERNAL = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "external")
+
+
+def _arts_assets():
+    d = np.load(os.path.join(_EXTERNAL, "arts_angular.npz"))
+    return d["angsFRED"], d["weightMatrix"]
+
+
 def get_scattering_angles(config: Dict) -> Dict:
-    """Scattering-angle dict of the deck's probe beam (non-angular spectypes)."""
-    if config["other"]["extraoptions"]["spectype"] == "angular":
-        raise NotImplementedError("the ARTS angular geometry is not ported yet (ROADMAP.md §1 item 12)")
-    return sa_lookup(config["data"]["probe_beam"])
+    """Scattering-angle dict from the deck: the probe beam's, or for spectype "angular" the ARTS
+    geometry (241 fine angles and the [1024, 241] weight matrix)."""
+    if config["other"]["extraoptions"]["spectype"] != "angular":
+        return sa_lookup(config["data"]["probe_beam"])
+    _, weights = _arts_assets()
+    return dict(sa=np.arange(19, 139.5, 0.5), weights=weights)
+
+
+def get_calibrations(shotNum, tstype, t0, CCDsize):
+    """(axisxE, axisxI, axisyE, axisyI, magE, stddev) of the angular (ARTS) instrument.
+
+    The angular arm of ``tsadar_tpu``'s ``get_calibrations``: shot-ranged EPW
+    dispersion and offset, the instrument widths, the camera's angle axis as
+    axisxE.  The temporal and imaging arms come with the host data pipeline.
+    """
+    if tstype != "angular":
+        raise NotImplementedError(f"calibrations of spectype {tstype!r} are not ported yet (ROADMAP.md §1 item 8)")
+    if shotNum < 95000:
+        EPWDisp, EPWoff = 0.214116, 449.5272
+    else:  # calibrations from 7-26-22, same for >= 105000
+        EPWDisp, EPWoff = 0.2129, 439.8
+    IAWDisp, IAWoff = 1, 1  # ARTS does not measure ion spectra
+    stddev = {"spect_stddev_ion": 1, "spect_FWHM_ele": 0.9, "spect_stddev_ele": 0.9 / 2.3548, "ang_FWHM_ele": 1}
+    axisy = np.arange(1, CCDsize[0] + 1)
+    axisxE, _ = _arts_assets()
+    return axisxE, np.arange(1, CCDsize[1] + 1), axisy * EPWDisp + EPWoff, axisy * IAWDisp + IAWoff, 1, stddev
