@@ -10,21 +10,34 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
 3. holds each kernel against its plain PyTorch twin on the card, at the shapes
    of the whole-shot forward, and times kernel, twin and (where one exists) a
    single PyTorch library call computing the same function;
-4. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
+4. drives the whole-shot fit from shot 101675's real data, as
+   ``bench_whole_shot.py`` does: ``prepare_data`` on the shot (128 lineouts,
+   pixels 300:812:4; host seconds and shapes), the 128-lineout forward at the
+   deck's start values (K1, K3, K5 and the pole tables K9 once each), K9 in
+   both modes and K10 with its backward against their twins on that forward's
+   own operands and on seeded ones, K10's path (``interp1d_linear_pallas`` on
+   the real chi_R table and queries, forward and backward, against K1/K2),
+   loss and gradient of 4 real lineouts against the CPU float64 plain path,
+   and FIT_STEPS adam steps at lr 2e-2 (K1-K6 and both K9 modes once per
+   step) under ``bench_whole_shot.py``'s quality gate: Te, ne and m at the
+   lineouts of pixels 500-510 within 10 %, 5 % and 15 % of the validated
+   0.641, 0.228 and 3.20, final and median lineout loss under 1e-3, the fit
+   under 60 s; ms per step and a profile of the step;
+5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
    in that run, compares 4 lineouts with the plain path on the CPU in float64,
    and times the forward;
-5. compares loss and gradient of 4 lineouts on the card (float32, kernels)
+6. compares loss and gradient of 4 lineouts on the card (float32, kernels)
    with the CPU float64 plain path, per active parameter;
-6. fits the 128 lineouts: the data are the port's own forward at the seeded
+7. fits the 128 lineouts: the data are the port's own forward at the seeded
    truth, the parameters start at the deck's values, and ``_1d_adam_loop_``
    takes FIT_STEPS adam steps at lr 2e-2.  Every one of the six kernels must
    launch at least once per step, every loss must be finite, the best loss
    must fall to a tenth of the first, and the medians of the recovered Te, ne
    and m must lie within 10 %, 5 % and 15 % of the truth.  It reports ms per
    step and a profile of a few steps;
-7. drives the ARTS 2V path at its full width (the ``tests/configs/arts2*`` deck:
+8. drives the ARTS 2V path at its full width (the ``tests/configs/arts2*`` deck:
    1024 wavelengths x 241 fine angles, a 128 x 128 arbitrary 2D EDF, 256-row
    angle tables, one image): holds the fused chi-table lookup and its cotangent
    (K7, K8) against their plain twins on seeded queries, on an edge set and on
@@ -77,6 +90,10 @@ TAIL_IAW_FLOOR = 1e-6
 # of max |cotangent|: both sum ~25 (K2) or ~160 (K4) float32 terms per entry in
 # an order of their own
 LOOKUP_BWD_TOL = 1e-5
+# K10's table cotangent against its twin in float64: any float32 form resolves the weight w = pos - i0
+# only to half an ulp of pos (~6e-5 at n = 2043), and each entry sums ~25 such deposits, so it is held
+# to LOOKUP_BWD_F64_TOL of its max there (the float32 twin's own miss is reported beside it)
+LOOKUP_BWD_F64_TOL = 1e-4
 # the tail's cotangents are held to the twin (autograd of the plain tail) run
 # in float64 on the same inputs, each output on its own: at most TAIL_BWD_TOL
 # of that output's largest magnitude (measured <= 5e-4).  Two outputs have no
@@ -119,6 +136,20 @@ ARTS_1V_F32_TOL = 1e-3
 ARTS_FIT_STEPS = 120
 ARTS_FIT_LR = 5e-4
 ARTS_FIT_DROP = 0.25  # last loss under this share of the first (the JAX ARTS bench's gate)
+# the pole tables (K9, both modes) against their twin in float64 on the same float32 operands, of the
+# table's (cotangent's) largest |entry|: the precombined form's float32 error is ~2e-7 (one f32 product
+# per coefficient, sums over 1024 nodes); against the float32 twin (two cuBLAS products) the same limit
+PV_TOL = 1e-5
+PV_PARTIAL_B = 5  # a K9 check on a batch that is not a multiple of the kernel's 4 rows per block
+# the real-data fit (bench_whole_shot.py): 128 lineouts of shot 101675, pixels 300:812:4, 200 adam
+# steps at lr 2e-2, and bench_whole_shot.py's own quality gate at the lineouts of pixels 500-510
+# (tests/test_inverse/test_1d_data.py's validated values and tolerances), with its loss ceilings
+REAL_PIXELS = (300, 812, 4)
+REAL_TRUTH = {"Te": (0.641, 0.10), "ne": (0.228, 0.05), "m": (3.20, 0.15)}  # (validated value, relative tolerance)
+REAL_WINDOW = (500, 510)
+REAL_LOSS_CEILING = 1e-3  # final loss and median lineout loss
+REAL_FIT_SECONDS = 60.0
+REAL_CHECK_PIXELS = (500, 504, 508, 512)  # the 4 real lineouts of the loss/gradient check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SLEEP_CYCLES = 400_000_000  # ~0.2 s: lets the host queue every timed launch before the first runs
@@ -841,11 +872,13 @@ def arts_fit(cfg, sas, target, wrappers, smi):
     return launches, steps_run
 
 
-def check_lookups_arts_1v(cfg, sas):
-    """K1 and K3 at the ARTS 1V deck's shapes -- one row, 2048 x 241 queries, the 2043-entry pole table
-    and the 256-point log-EDF as the forward builds them -- on the deck's own operands, against their
-    twins in float32 (every query) and in float64 on the same float32 operands, at LOOKUP_TOL of
-    max |table|.  K1's second output jumps from cell to cell: against float64 it is compared where
+def check_lookups_arts_1v(cfg, sas, rng):
+    """K1, K3 and K9 at the ARTS 1V deck's shapes -- one row, 2048 x 241 queries, the 2043-entry pole
+    table, the 256-point log-EDF and the PV integrand [1, 1024] as the forward builds them -- on the
+    deck's own operands (K9's transposed mode on a seeded cotangent).  K9 is held to its float32 and
+    float64 twins at PV_TOL of max |table|, one row being a partial block of its 4.  K1 and K3 are
+    held to their twins in float32 (every query) and in float64 on the same float32 operands, at
+    LOOKUP_TOL of max |table|.  K1's second output jumps from cell to cell: against float64 it is compared where
     both precisions put the query into the same cell, and the others are counted.  K3 extrapolates
     its edge polynomial with an unclamped t, which far from the grid (this deck's |xi_e| reaches 15
     on a grid of +-8) is rounding noise in any float32 form, and the forward overwrites every query
@@ -858,11 +891,20 @@ def check_lookups_arts_1v(cfg, sas):
 
     diag, params = arts_models(cfg, sas, None)
     ff = diag.model.electron_form_factor
-    xie, log_fe, meta, table, _ = ff._lookup_inputs_1v(_batch_of_one(params()))
+    physical = _batch_of_one(params())
+    xie, log_fe, meta, table, _ = ff._lookup_inputs_1v(physical)
     q = xie.reshape(1, -1).contiguous()
     x0, dx, n = ff.pv_x0, ff.pv_dx, table.shape[1]
-    if (q.shape[1], n, log_fe.shape[1]) != (cfg["other"]["npts"] * len(sas["sa"]), 2043, 256):
-        raise RuntimeError(f"the ARTS 1V deck gives Q, pole table, EDF = {q.shape[1]}, {n}, {log_fe.shape[1]}")
+    ratdf = ff._pv_integrand(log_fe, physical["electron"]["v"])
+    if (q.shape[1], n, log_fe.shape[1], tuple(ratdf.shape)) != (cfg["other"]["npts"] * len(sas["sa"]), 2043, 256, (1, 1024)):
+        raise RuntimeError(f"the ARTS 1V deck gives Q, pole table, EDF, PV integrand = {q.shape[1]}, {n}, {log_fe.shape[1]}, {tuple(ratdf.shape)}")
+
+    g = torch.tensor(rng.standard_normal((1, n)), dtype=torch.float32, device=ratdf.device)
+    report, ok, _ = pv_case("arts_1v_ratdf", ratdf, g, ff._pv_coef)
+    emit({"phase": "kernel_check", "kernel": "pv_tables_fwd+bwd", "shapes": "arts_1v", "B": 1, "N": ratdf.shape[1],
+          "tol": PV_TOL, "cases": report, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"pv_tables at the ARTS 1V shapes disagrees with its plain twins: {report}")
 
     got, f32, f64 = lin_lookup.lin_lookup_fwd(q, table, x0, dx), lin_lookup.plain(q, table, x0, dx), lin_lookup.plain(q.double(), table.double(), x0, dx)
     same = lin_cell(q, x0, dx, n)[1] == lin_cell(q.double(), x0, dx, n)[1]
@@ -915,7 +957,18 @@ def arts_other_forward(phase, cfg, sas, kernels, wrappers, plain_f32_tol=None):
             report = {"compared_with": "the CPU float32 plain forward", "card_vs_f64_of_peak": err, "plain_f32_cpu_vs_f64_of_peak": miss(plain32),
                       "pixels_over_fwd_tol_of_f64": int(over.sum()), "pixels": over.numel()}
             err, tol = float((ThryE.cpu() - plain32).abs().max() / ref.abs().max()), plain_f32_tol
-    fe = cfg["parameters"]["electron"]["fe"]
+            if "pv_tables_fwd" in kernels:
+                # the same card forward with K9's float32 twin (two cuBLAS products) in the kernel's
+                # place, outside the launch count: the share of the miss that K9's rounding makes
+                from tsadar_tpu_torch.ops import pv_tables
+
+                kernel, pv_tables.pv_tables_fwd = pv_tables.pv_tables_fwd, pv_tables.plain
+                try:
+                    with_twin = diag(params, batch)[0]
+                finally:
+                    pv_tables.pv_tables_fwd = kernel
+                report["card_with_pv_twin_vs_plain_f32_of_peak"] = float((with_twin.cpu() - plain32).abs().max() / ref.abs().max())
+    fe =cfg["parameters"]["electron"]["fe"]
     ok = launches == {k: int(k in kernels) for k in wrappers} and bool(torch.isfinite(ThryE).all()) and err <= tol
     emit({"phase": phase, "fe": {k: v for k, v in fe.items() if k != "active"}, "npts": cfg["other"]["npts"],
           "image": list(ThryE.shape), "max_err_of_peak": err, "tol": tol, **report, "launches": launches, "ok": ok})
@@ -923,18 +976,348 @@ def arts_other_forward(phase, cfg, sas, kernels, wrappers, plain_f32_tol=None):
         raise RuntimeError(f"{phase}: {err:.3e} of peak against {tol:.3e}, launches {launches}")
 
 
+def load_real_deck(start, end, skip, batch_size):
+    """The whole-shot deck as ``bench_whole_shot.py`` sets it up: lineouts start:end:skip of shot
+    101675, one batch.  The deck asks for the raw-data visualizer, which the port does not have
+    (matplotlib): it is switched off."""
+    from tsadar_tpu_torch.inverse.fitter import _lineout_selection
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    decks = [yaml.safe_load((ROOT / "tests" / "configs" / f"time_test_{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+    cfg = merge_configs(*decks)
+    cfg["data"]["launch_data_visualizer"] = False
+    cfg["data"]["lineouts"].update(start=start, end=end, skip=skip)
+    cfg["optimizer"]["batch_size"] = batch_size
+    return _lineout_selection(cfg)
+
+
+def real_batch(all_data, rows=slice(None)):
+    """The loss's batch from ``prepare_data``'s output, as ``bench_whole_shot.py`` builds it."""
+    return {"e_data": all_data["e_data"][rows], "e_amps": all_data["e_amps"][rows, None],
+            "i_data": all_data["i_data"][rows], "i_amps": all_data["i_amps"][rows, None],
+            "noise_e": all_data["noiseE"][rows], "noise_i": all_data["noiseI"][rows]}
+
+
+def real_data_prepare():
+    """The port's data pipeline on shot 101675 at the bench's 128 lineouts: (config, sa, all_data)."""
+    from tsadar_tpu_torch.utils.process.prepare import prepare_data
+
+    cfg = load_real_deck(*REAL_PIXELS, N_LINEOUTS)
+    t0 = time.perf_counter()
+    all_data, sa, axes = prepare_data(cfg, cfg["data"]["shotnum"])
+    seconds = time.perf_counter() - t0
+    shapes = {k: list(np.shape(v)) for k, v in all_data.items()}
+    ok = (np.shape(all_data["e_data"]) == (N_LINEOUTS, 1024) and bool(np.isfinite(all_data["e_data"]).all())
+          and bool((all_data["e_amps"] > 0).all()) and cfg["other"]["npts"] == 5120)
+    emit({"phase": "real_data_prepare", "shot": cfg["data"]["shotnum"], "pixels": list(REAL_PIXELS),
+          "lineouts": len(cfg["data"]["lineouts"]["val"]), "host_seconds": seconds, "shapes": shapes,
+          "npts": cfg["other"]["npts"], "lamrangE": [float(v) for v in cfg["other"]["lamrangE"]],
+          "widIRF": cfg["other"]["PhysParams"]["widIRF"], "e_amps_range": [float(all_data["e_amps"].min()), float(all_data["e_amps"].max())],
+          "ok": ok})
+    if not ok:
+        raise RuntimeError(f"prepare_data on shot 101675: shapes {shapes}, npts {cfg['other']['npts']}")
+    return cfg, sa, all_data
+
+
+def real_operands(loss_fn, params):
+    """The real-data forward's operands of K9 and K10: (PV integrand [B, 1024], chi_R table [B, 2043],
+    its pole grid [2043], the queries xi_e [B, 51 200])."""
+    ff = loss_fn.ts_diag.model.electron_form_factor
+    physical = params()
+    xie, log_fe, _, table, _ = ff._lookup_inputs_1v(physical)
+    ratdf = ff._pv_integrand(log_fe, physical["electron"]["v"])
+    return ratdf, table, ff.pv_poles, xie.reshape(xie.shape[0], -1).contiguous()
+
+
+def pv_case(label, f, g, coef):
+    """K9 in both modes on (f, g) against its twin in float32 and in float64 (float64 coefficients,
+    the same f and g)."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics import ratint
+    from tsadar_tpu_torch.ops import pv_tables
+
+    coef64 = ratint.pv_coefficients(coef.shape[1] // 4, torch.float64, coef.device)
+    report, worst = {}, {}
+    for mode, x, kern, twin in (("fwd", f, pv_tables.pv_tables_fwd, pv_tables.plain), ("bwd", g, pv_tables.pv_tables_bwd, pv_tables.plain_bwd)):
+        got, f32, f64 = kern(x, coef), twin(x, coef), twin(x.double(), coef64)
+        scale = float(f64.abs().max())
+        entry = {"scale": scale, "vs_f32": float((got - f32).abs().max()) / scale,
+                 "vs_f64": float((got.double() - f64).abs().max()) / scale, "f32_twin_vs_f64": float((f32.double() - f64).abs().max()) / scale}
+        entry["ok"] = bool(torch.isfinite(got).all()) and entry["vs_f32"] <= PV_TOL and entry["vs_f64"] <= PV_TOL
+        report[mode] = entry
+        worst[mode] = float((got.double() - f64).abs().max())
+    return {label: report}, all(r["ok"] for r in report.values()), worst
+
+
+def check_pv_tables(rng, ratdf):
+    """K9, both modes, at the main path's shapes (B = 128, N = 1024): seeded smooth integrands and
+    cotangents, the same on their first PV_PARTIAL_B rows (the last block of kRows = 4 lineouts partly
+    empty: the kernels' row guards), and the real-data forward's own integrand ``ratdf``; times of the
+    kernels, their twins and one torch.matmul with the concatenated dense matrices (the same function)."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics import ratint
+    from tsadar_tpu_torch.ops import pv_tables
+
+    dev = ratdf.device
+    B, n = ratdf.shape
+    m = n - 2
+    coef = ratint.pv_coefficients(m, torch.float32, dev)
+    v = np.linspace(-8.2, 8.2, n)
+    seeded = -v * np.exp(-(v[None, :] ** 2) / (2.0 * rng.uniform(0.5, 2.0, (B, 1)))) + 1e-3 * rng.standard_normal((B, n))
+    f = torch.tensor(seeded, dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((B, 2 * m - 1)), dtype=torch.float32, device=dev)
+    report, ok, worst = pv_case("seeded", f, g, coef)
+    for case in (pv_case(f"seeded_B{PV_PARTIAL_B}", f[:PV_PARTIAL_B], g[:PV_PARTIAL_B], coef), pv_case("real_data_ratdf", ratdf, g, coef)):
+        report |= case[0]
+        ok = ok and case[1]
+    emit({"phase": "kernel_check", "kernel": "pv_tables_fwd+bwd", "B": B, "N": n, "tol": PV_TOL, "cases": report, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"pv_tables: a kernel disagrees with its plain twins: {report}")
+
+    kcat = torch.cat(ratint.pv_dense(m, torch.float32, dev), dim=1)  # [n, 2m], the twin's cached pair
+    gcat = torch.cat([g[:, 0::2], g[:, 1::2], torch.zeros((B, 1), dtype=g.dtype, device=dev)], dim=1)
+    nbytes = 4 * (B * n + B * (2 * m - 1) + 8 * m)
+    b_ms, b_by = bound_ms(nbytes, 2 * 2 * B * n * m)
+    rows = {
+        "pv_tables_fwd": dict(max_abs_err=worst["fwd"], ms=device_times_ms(lambda: pv_tables.pv_tables_fwd(ratdf, coef)),
+                              plain_ms=device_times_ms(lambda: pv_tables.plain(ratdf, coef)), bound_ms=b_ms, bound_by=b_by,
+                              library_ms=device_times_ms(lambda: torch.matmul(ratdf, kcat))),
+        "pv_tables_bwd": dict(max_abs_err=worst["bwd"], ms=device_times_ms(lambda: pv_tables.pv_tables_bwd(g, coef)),
+                              plain_ms=device_times_ms(lambda: pv_tables.plain_bwd(g, coef)), bound_ms=b_ms, bound_by=b_by,
+                              library_ms=device_times_ms(lambda: torch.matmul(gcat, kcat.T))),
+    }
+    return rows
+
+
+def check_lin_lookup_meta(rng, table, poles, q):
+    """K10 and its backward at the real-data path's shapes: the chi_R table [128, 2043] zero-padded to
+    2048 with the grid as a device tensor, at the real xi_e queries [128, 51 200] and at seeded queries
+    that run past both ends; against their float32 and float64 twins (at LOOKUP_TOL of max |table|; the
+    slope against float64 where both precisions put the query into the same cell) and against K1/K2 on
+    the unpadded table."""
+    import torch
+    import torch.nn.functional as F
+
+    from tsadar_tpu_torch.core.physics.interp import PAD_BLOCK, lin_cell
+    from tsadar_tpu_torch.ops import lin_lookup
+
+    dev = table.device
+    B, n = table.shape
+    npad = (n // PAD_BLOCK + 1) * PAD_BLOCK
+    tpad = F.pad(table, (0, npad - n)).contiguous()
+    meta = torch.stack([poles[0], poles[1] - poles[0], torch.full_like(poles[0], n)]).contiguous()
+    x0, dx = float(meta[0]), float(meta[1])
+    span = x0 + dx * (n - 1)
+    q_seeded = torch.tensor(rng.uniform(x0 - 1.0, span + 1.0, q.shape), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal(q.shape), dtype=torch.float32, device=dev)
+    scale = float(table.abs().max())
+    report, ok, worst = {}, True, (0.0, 0.0)
+    for label, qq in (("real_data_xie", q), ("seeded", q_seeded)):
+        got, f32, f64 = lin_lookup.lin_lookup_meta_fwd(qq, tpad, meta), lin_lookup.plain_meta(qq, tpad, meta), lin_lookup.plain_meta(qq.double(), tpad.double(), meta.double())
+        k1 = lin_lookup.lin_lookup_fwd(qq, table.contiguous(), x0, dx)
+        same = lin_cell(qq, meta[0], meta[1], n)[1] == lin_cell(qq.double(), meta[0].double(), meta[1].double(), n)[1]
+        d_bwd, d_f32, k2 = lin_lookup.lin_lookup_meta_bwd(qq, g, meta, npad), lin_lookup.plain_meta_bwd(qq, g, meta, npad), lin_lookup.lin_lookup_bwd(qq, g, x0, dx, n)
+        # against float64 with the queries that float64 puts into another cell left out on both sides
+        g_same = (g * same).contiguous()
+        d_same, d_f64 = lin_lookup.lin_lookup_meta_bwd(qq, g_same, meta, npad), lin_lookup.plain_meta_bwd(qq.double(), g_same.double(), meta.double(), npad)
+        d_scale = float(d_f64.abs().max())
+        entry = {
+            "value_vs_f32": float((got[0] - f32[0]).abs().max()) / scale, "value_vs_f64": float((got[0].double() - f64[0]).abs().max()) / scale,
+            "slope_vs_f32": float((got[1] - f32[1]).abs().max()) / scale,
+            "slope_vs_f64_same_cell": float(((got[1].double() - f64[1]).abs() * same).max()) / scale,
+            "value_vs_k1": float((got[0] - k1[0]).abs().max()) / scale, "slope_vs_k1": float((got[1] - k1[1]).abs().max()) / scale,
+            "queries_in_another_cell_in_f64": int((~same).sum()),
+            "dtable_vs_f32": float((d_bwd - d_f32).abs().max()) / d_scale, "dtable_vs_f64_same_cell": float((d_same.double() - d_f64).abs().max()) / d_scale,
+            "dtable_f32_twin_vs_f64_same_cell": float((lin_lookup.plain_meta_bwd(qq, g_same, meta, npad).double() - d_f64).abs().max()) / d_scale,
+            "dtable_vs_k2": float((d_bwd[:, :n] - k2).abs().max()) / d_scale, "dtable_padding_zero": bool((d_bwd[:, n:] == 0).all()),
+        }
+        entry["ok"] = entry["dtable_padding_zero"] and all(
+            entry[k] <= LOOKUP_TOL for k in ("value_vs_f32", "value_vs_f64", "slope_vs_f32", "slope_vs_f64_same_cell", "value_vs_k1", "slope_vs_k1")
+        ) and entry["dtable_vs_f32"] <= LOOKUP_BWD_TOL and entry["dtable_vs_k2"] <= LOOKUP_BWD_TOL and (
+            entry["dtable_vs_f64_same_cell"] <= LOOKUP_BWD_F64_TOL)
+        report[label] = entry
+        ok = ok and entry["ok"]
+        if label == "real_data_xie":
+            worst = (float((got[0].double() - f64[0]).abs().max()), float((d_same.double() - d_f64).abs().max()))
+    emit({"phase": "kernel_check", "kernel": "lin_lookup_meta_fwd+bwd", "queries": list(q.shape), "table": [B, npad], "n": n,
+          "tol": LOOKUP_TOL, "bwd_tol": LOOKUP_BWD_TOL, "bwd_f64_tol": LOOKUP_BWD_F64_TOL, "table_scale": scale, "cases": report, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"lin_lookup_meta: a kernel disagrees with its twins or with K1/K2: {report}")
+
+    Q = q.shape[1]
+    grid = torch.zeros((B, 1, Q, 2), dtype=torch.float32, device=dev)
+    grid[..., 0] = ((q - x0) / (dx * (n - 1)) * 2.0 - 1.0)[:, None, :]
+    img = table[:, None, None, :].contiguous()
+    idx = torch.clamp(torch.floor(torch.clamp((q - x0) / dx, 0.0, n - 1.0)), max=n - 2.0).long()
+    fwd_ms, fwd_by = bound_ms(4 * B * Q + 4 * B * npad + 12 + 8 * B * Q, 10 * B * Q)
+    bwd_ms, bwd_by = bound_ms(8 * B * Q + 12 + 4 * B * npad, 8 * B * Q)
+    return {
+        "lin_lookup_meta_fwd": dict(
+            max_abs_err=worst[0], ms=device_times_ms(lambda: lin_lookup.lin_lookup_meta_fwd(q, tpad, meta)),
+            plain_ms=device_times_ms(lambda: lin_lookup.plain_meta(q, tpad, meta)), bound_ms=fwd_ms, bound_by=fwd_by,
+            library_ms=device_times_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True))),
+        "lin_lookup_meta_bwd": dict(
+            max_abs_err=worst[1], ms=device_times_ms(lambda: lin_lookup.lin_lookup_meta_bwd(q, g, meta, npad)),
+            plain_ms=device_times_ms(lambda: lin_lookup.plain_meta_bwd(q, g, meta, npad)), bound_ms=bwd_ms, bound_by=bwd_by,
+            library_ms=device_times_ms(lambda: torch.zeros((B, npad), dtype=torch.float32, device=dev).scatter_add_(-1, idx, g))),
+    }
+
+
+def real_data_lookup_padded(table, poles, q, wrappers):
+    """K10's path: ``interp1d_linear_pallas`` on the real-data chi_R table and queries, forward and
+    backward through autograd (K10 and its backward once each), against the same lookup through
+    ``LinLookup`` (K1, K2): values, the query cotangent and the table cotangent."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.interp import interp1d_linear_pallas, lin_lookup
+
+    g = torch.tensor(np.random.default_rng(SEED + 1).standard_normal(q.shape), dtype=torch.float32, device=q.device)
+    results = {}
+    for name in ("k10", "k1"):
+        qq, tt = q.detach().clone().requires_grad_(), table.detach().clone().requires_grad_()
+        with torch.enable_grad():
+            read_and_zero(wrappers)
+            val = interp1d_linear_pallas(qq, poles, tt) if name == "k10" else lin_lookup(qq, tt, float(poles[0]), float(poles[1] - poles[0]))
+            g_q, g_t = torch.autograd.grad(val, (qq, tt), g)
+        torch.cuda.synchronize()
+        results[name] = (val.detach(), g_q, g_t, read_and_zero(wrappers))
+    (val, g_q, g_t, launches), (val1, g_q1, g_t1, _) = results["k10"], results["k1"]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+    errs = {"value_vs_k1": rel(val, val1), "g_q_vs_k1": rel(g_q, g_q1), "g_table_vs_k2": rel(g_t, g_t1)}
+    ok = (launches == {k: int(k in ("lin_lookup_meta_fwd", "lin_lookup_meta_bwd")) for k in wrappers}
+          and errs["value_vs_k1"] <= LOOKUP_TOL and errs["g_q_vs_k1"] <= LOOKUP_TOL and errs["g_table_vs_k2"] <= LOOKUP_BWD_TOL)
+    emit({"phase": "real_data_lookup_padded", "queries": list(q.shape), "table": list(table.shape), "launches": launches, **errs,
+          "tol": LOOKUP_TOL, "bwd_tol": LOOKUP_BWD_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"interp1d_linear_pallas on the real-data operands: launches {launches}, {errs}")
+    return launches
+
+
+def real_data_forward(cfg, sa, all_data, wrappers, smi):
+    """The 128-lineout forward of the real-data fit's loss at the deck's start values: K1, K3, K5 and K9
+    once each, finite spectra of the data's shape; wall time.  Returns (loss function, batch, params, launches)."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+
+    batch = real_batch(all_data)
+    loss_fn = LossFunction(cfg, sa, batch)
+    diag = loss_fn.ts_diag
+    params = ThomsonParams.create(cfg["parameters"], N_LINEOUTS, activate=True, device=diag.device, dtype=diag.dtype)
+    dev_batch = loss_fn.device_batch(batch)
+    with torch.no_grad():
+        read_and_zero(wrappers)
+        ThryE = diag(params, dev_batch)[0]
+        torch.cuda.synchronize()
+        launches = read_and_zero(wrappers)
+        times = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            diag(params, dev_batch)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    want = {k: int(k in FORWARD_KERNELS) for k in wrappers}
+    ok = launches == want and tuple(ThryE.shape) == (N_LINEOUTS, 1024) and bool(torch.isfinite(ThryE).all())
+    emit({"phase": "real_data_forward", "lineouts": N_LINEOUTS, "launches": launches, "shape": list(ThryE.shape),
+          "finite": bool(torch.isfinite(ThryE).all()), "ms": ms, "spectra_per_s": N_LINEOUTS / ms * 1e3, "times_ms": times,
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"real-data forward: launches {launches} (want {want}), shape {tuple(ThryE.shape)}")
+    return loss_fn, batch, params, launches
+
+
+def real_data_grad_check(cfg, sa, all_data):
+    """Loss and gradient of the real lineouts at REAL_CHECK_PIXELS at the deck's start values: the card
+    (float32, kernels) against the CPU plain path in float64, at grad_check's limits."""
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+
+    pixels = list(cfg["data"]["lineouts"]["val"])
+    rows = [pixels.index(p) for p in REAL_CHECK_PIXELS]
+    data = real_batch(all_data, rows)
+    check_cfg = copy.deepcopy(cfg)
+    check_cfg["optimizer"]["batch_size"] = len(rows)
+    results = {}
+    for name, device in (("f64", "cpu"), ("card", "cuda")):
+        loss_fn = LossFunction(check_cfg, {"sa": sa["sa"], "weights": sa["weights"][rows]}, data, device=device)
+        params = ThomsonParams.create(check_cfg["parameters"], len(rows), activate=True, device=device,
+                                      dtype=loss_fn.ts_diag.dtype)
+        (value, _), grads = loss_fn.value_and_grad(params, data)
+        results[name] = float(value), {k: g.double().cpu() for k, g in grads.items()}
+    (loss_ref, g_ref), (loss, g_card) = results["f64"], results["card"]
+    loss_err = abs(loss - loss_ref) / abs(loss_ref)
+    report = {k: float((g_card[k] - g_ref[k]).abs().max() / g_ref[k].abs().max()) for k in g_ref}
+    ok = loss_err <= LOSS_TOL and all(err <= GRAD_TOL for err in report.values())
+    emit({"phase": "real_data_grad_check", "pixels": list(REAL_CHECK_PIXELS), "loss": loss, "loss_f64_cpu": loss_ref,
+          "loss_rel_err": loss_err, "loss_tol": LOSS_TOL, "grad_err_of_max_per_parameter": report, "grad_tol": GRAD_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"real-data loss or gradient on the card disagrees with the CPU float64 path: {loss_err:.3e}, {report}")
+
+
+def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
+    """``_1d_adam_loop_`` on the 128 real lineouts: FIT_STEPS adam steps at FIT_LR in chunks of 8, K1-K6
+    and both K9 modes once per step, then ``bench_whole_shot.py``'s quality gate.  Returns the launches."""
+    import torch
+
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+
+    fit_cfg = fit_config(cfg, N_LINEOUTS, FIT_STEPS)
+    record = {}
+    read_and_zero(wrappers)
+    best_loss, best = _1d_adam_loop_(fit_cfg, loss_fn, None, batch, record=record)
+    torch.cuda.synchronize()
+    launches = read_and_zero(wrappers)
+    losses = record["losses"]
+    fit_seconds = sum(record["chunk_seconds"])
+    with torch.no_grad():
+        row_loss = loss_fn.__loss__(best, batch)[1][2].double().cpu().numpy()
+    fitted = {k: v.detach().double().cpu().numpy() for k, v in best.get_unnormed_params()["electron"].items() if k in REAL_TRUTH}
+    pixels = np.asarray(cfg["data"]["lineouts"]["val"])
+    sel = np.where((pixels >= REAL_WINDOW[0]) & (pixels <= REAL_WINDOW[1]))[0]
+    at_window = {k: [float(v) for v in fitted[k][sel]] for k in REAL_TRUTH}
+    gates = {k: all(abs(v - truth) / truth <= tol for v in at_window[k]) for k, (truth, tol) in REAL_TRUTH.items()}
+    gates |= {"covered": len(sel) > 0, "final_loss": losses[-1] < REAL_LOSS_CEILING,
+              "lineout_median": float(np.median(row_loss)) < REAL_LOSS_CEILING, "fit_time": fit_seconds < REAL_FIT_SECONDS}
+    want = {k: FIT_STEPS * int(k in REAL_FIT_KERNELS) for k in wrappers}
+    ok = launches == want and bool(np.isfinite(losses).all()) and all(gates.values())
+    ms_per_step = 1e3 * fit_seconds / FIT_STEPS
+    emit({"phase": "real_data_fit", "lineouts": N_LINEOUTS, "steps": FIT_STEPS, "lr": FIT_LR, "launches": launches,
+          "first_loss": losses[0], "final_loss": losses[-1], "best_loss": best_loss,
+          "median_lineout_loss": float(np.median(row_loss)), "worst_lineout_loss": float(np.max(row_loss)),
+          "at_pixels_500_510": at_window, "truth_and_tol": REAL_TRUTH, "gates": gates, "quality_ok": all(gates.values()),
+          "fit_seconds": fit_seconds, "ms_per_step": ms_per_step, "lineout_steps_per_s": N_LINEOUTS * 1e3 / ms_per_step,
+          "median_fitted": {k: float(np.median(v)) for k, v in fitted.items()}, "losses_every_10th": losses[::10], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"real-data fit: launches {launches} (want {want}), gates {gates}")
+    few = 4  # steps under the profiler, from the deck's start values again
+    emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, batch), few, ms_per_step,
+                     "real_data_fit_profile", "step"))
+    return launches
+
+
+# (source, the TPU kernel it replaces, which of the repo's ten TPU kernels); K9's transposed mode and
+# K10's table cotangent have no TPU kernel of their own: they stand beside the kernel they belong to
 KERNELS = {
-    "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84"),
-    "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193"),
-    "cubic_lookup_fwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:314"),
-    "cubic_lookup_bwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:416"),
-    "spectrum_tail_fwd": ("tsadar_tpu_torch/csrc/spectrum_tail.cu", "tsadar_tpu/ops/spectrum_kernel.py:380"),
-    "spectrum_tail_bwd": ("tsadar_tpu_torch/csrc/spectrum_tail_bwd.cu", "tsadar_tpu/ops/spectrum_kernel.py:407"),
-    "chi_bilinear_fwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:132"),
-    "chi_bilinear_bwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:253"),
+    "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84", "K1"),
+    "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193", "K2"),
+    "cubic_lookup_fwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:314", "K3"),
+    "cubic_lookup_bwd": ("tsadar_tpu_torch/csrc/cubic_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:416", "K4"),
+    "spectrum_tail_fwd": ("tsadar_tpu_torch/csrc/spectrum_tail.cu", "tsadar_tpu/ops/spectrum_kernel.py:380", "K5"),
+    "spectrum_tail_bwd": ("tsadar_tpu_torch/csrc/spectrum_tail_bwd.cu", "tsadar_tpu/ops/spectrum_kernel.py:407", "K6"),
+    "chi_bilinear_fwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:132", "K7"),
+    "chi_bilinear_bwd": ("tsadar_tpu_torch/csrc/chi_bilinear.cu", "tsadar_tpu/ops/bilinear_kernel.py:253", "K8"),
+    "pv_tables_fwd": ("tsadar_tpu_torch/csrc/pv_tables.cu", "tsadar_tpu/ops/pv_kernel.py:85", "K9"),
+    "pv_tables_bwd": ("tsadar_tpu_torch/csrc/pv_tables.cu", "tsadar_tpu/ops/pv_kernel.py:85", "K9, transposed mode"),
+    "lin_lookup_meta_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel.py:84", "K10"),
+    "lin_lookup_meta_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/core/physics/interp.py:1227", "K10, table cotangent"),
 }
-FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd")
+FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd", "pv_tables_fwd")
 ARTS_KERNELS = ("chi_bilinear_fwd", "chi_bilinear_bwd")
+PADDED_KERNELS = ("lin_lookup_meta_fwd", "lin_lookup_meta_bwd")
+REAL_FIT_KERNELS = tuple(k for k in KERNELS if k not in ARTS_KERNELS + PADDED_KERNELS)  # K1-K6 and both K9 modes
 
 
 def read_and_zero(wrappers):
@@ -959,7 +1342,7 @@ def main():
     sys.path.insert(0, str(ROOT))
 
     from tsadar_tpu_torch import ThomsonScatteringDiagnostic, get_scattering_angles
-    from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, spectrum_tail
+    from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, pv_tables, spectrum_tail
 
     # 1. device
     smi = subprocess.run(
@@ -991,6 +1374,10 @@ def main():
         "spectrum_tail_bwd": spectrum_tail.spectrum_tail_bwd,
         "chi_bilinear_fwd": chi_bilinear.chi_bilinear_fwd,
         "chi_bilinear_bwd": chi_bilinear.chi_bilinear_bwd,
+        "pv_tables_fwd": pv_tables.pv_tables_fwd,
+        "pv_tables_bwd": pv_tables.pv_tables_bwd,
+        "lin_lookup_meta_fwd": lin_lookup.lin_lookup_meta_fwd,
+        "lin_lookup_meta_bwd": lin_lookup.lin_lookup_meta_bwd,
     }
     arts_cfg, arts_sas = load_arts_deck()
     arts_diag, arts_params = arts_models(arts_cfg, arts_sas, None)
@@ -1003,7 +1390,21 @@ def main():
         rows["spectrum_tail_bwd"] = check_tail_bwd(diag, params, rng)
         rows |= check_chi_bilinear(rng, arts_diag, arts_params)
 
-        # 4. the first main path: the whole-shot forward through the kernels
+    # 4. this slice's main path: the whole-shot fit from shot 101675's real data -- the data pipeline,
+    # the 128-lineout forward (K9 among its kernels), K9 and K10 on its own operands, K10's path through
+    # interp1d_linear_pallas, loss and gradient against the CPU float64 path, and the 200-step adam fit
+    real_cfg, real_sa, real_all = real_data_prepare()
+    real_loss_fn, real_fit_batch, real_params, real_fwd_launches = real_data_forward(real_cfg, real_sa, real_all, wrappers, smi)
+    with torch.no_grad():
+        ratdf, chi_table, chi_poles, xie = real_operands(real_loss_fn, real_params)
+        rows |= check_pv_tables(rng, ratdf)
+        rows |= check_lin_lookup_meta(rng, chi_table, chi_poles, xie)
+    padded_launches = real_data_lookup_padded(chi_table, chi_poles, xie, wrappers)
+    real_data_grad_check(real_cfg, real_sa, real_all)
+    real_fit_launches = real_data_fit(real_cfg, real_loss_fn, real_fit_batch, wrappers, smi)
+
+    with torch.no_grad():
+        # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels
         read_and_zero(wrappers)
         ThryE = diag(params, batch)[0]
         torch.cuda.synchronize()
@@ -1033,10 +1434,10 @@ def main():
               "ms": ms, "spectra_per_s": N_LINEOUTS / ms * 1e3, "times_ms": times, "gpu": smi})
         emit(profile_run(lambda: [diag(params, batch) for _ in range(3)], 3, ms, "profile", "forward"))
 
-    # 5. loss and gradient on the card against the CPU float64 plain path
+    # 6. loss and gradient on the card against the CPU float64 plain path
     grad_check(cfg, sas, draws, diag_cpu)
 
-    # 6. the second main path: the adam fit of the whole lineout batch, forward and backward through the kernels
+    # 7. the second slice's path: the adam fit of the whole lineout batch, forward and backward through the kernels
     read_and_zero(wrappers)
     record, best_loss, errors, (loss_fn, fit_batch) = run_fit(cfg, sas, draws, N_LINEOUTS, FIT_STEPS, diag)
     torch.cuda.synchronize()
@@ -1047,7 +1448,7 @@ def main():
     chunk_ms = [1e3 * s / n for s, n in zip(record["chunk_seconds"], record["chunk_steps"])]
     medians = {k: float(np.median(v)) for k, v in errors.items()}
     fit_ok = (
-        all(fit_launches[k] >= FIT_STEPS for k in wrappers if k not in ARTS_KERNELS)
+        all(fit_launches[k] >= FIT_STEPS for k in REAL_FIT_KERNELS)
         and bool(np.isfinite(losses).all())
         and best_loss <= FIT_LOSS_DROP * losses[0]
         and all(medians[k] <= tol for k, tol in FIT_TOL.items())
@@ -1068,7 +1469,7 @@ def main():
     emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, fit_batch), few, ms_per_step,
                      "fit_profile", "step"))
 
-    # 7. the third main path: the ARTS 2V forward, its gradient and the angular fit through K7 and K8
+    # 8. the third slice's path: the ARTS 2V forward, its gradient and the angular fit through K7 and K8
     arts_fwd_launches, arts_target = arts_forward(arts_cfg, arts_sas, arts_diag, arts_params, wrappers, smi)
     arts_grad_check(arts_cfg, arts_sas, arts_target, wrappers)
     arts_fit_launches, arts_steps = arts_fit(arts_cfg, arts_sas, arts_target, wrappers, smi)
@@ -1077,19 +1478,26 @@ def main():
     arts_other_forward("arts_spherical_harmonics_forward", *load_arts_deck(arbitrary=False), ("chi_bilinear_fwd",), wrappers)
     arts_1v = load_arts_deck(arbitrary=False, names=ARTS_1V_DECK)
     with torch.no_grad():
-        check_lookups_arts_1v(*arts_1v)
-    arts_other_forward("arts_1v_forward", *arts_1v, ("lin_lookup_fwd", "cubic_lookup_fwd"), wrappers, plain_f32_tol=ARTS_1V_F32_TOL)
+        check_lookups_arts_1v(*arts_1v, rng)
+    arts_other_forward("arts_1v_forward", *arts_1v, ("lin_lookup_fwd", "cubic_lookup_fwd", "pv_tables_fwd"), wrappers,
+                       plain_f32_tol=ARTS_1V_F32_TOL)
 
     def launches_of(k):
-        """(on its main path, in that path's fit, fit steps): the 1V whole-shot path or the ARTS path."""
+        """(on its main path, in that path's fit, fit steps): the ARTS path (K7, K8), K10's drive on the
+        real-data operands, the real-data path (K9), or the first slices' synthetic 1V path (K1-K6)."""
         if k in ARTS_KERNELS:
             return (arts_fwd_launches if k == "chi_bilinear_fwd" else arts_fit_launches)[k], arts_fit_launches[k], arts_steps
+        if k in PADDED_KERNELS:
+            return padded_launches[k], 0, 0
+        if k.startswith("pv_tables"):
+            return (real_fwd_launches if k in FORWARD_KERNELS else real_fit_launches)[k], real_fit_launches[k], FIT_STEPS
         return (fwd_launches if k in FORWARD_KERNELS else fit_launches)[k], fit_launches[k], FIT_STEPS
 
     emit({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
+        {"name": k, "tpu_kernel": KERNELS[k][2], "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": launches_of(k)[0], "fit_launches": launches_of(k)[1],
-         "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2], **rows[k]}
+         "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2] if launches_of(k)[2] else 0.0,
+         "real_data_fit_launches": real_fit_launches[k], **rows[k]}
         for k in wrappers
     ]})
     print(smi, flush=True)

@@ -238,5 +238,3 @@ def test_what_the_slice_left_out_raises():
         port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", mode_2v="exact")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", shard_2v_points=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.get_calibrations(101675, "temporal", (0, 0), [1024, 1024])

@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no quiet CPU fallback."""
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, nothing that the
+card's machine lacks (cv2, pandas, matplotlib), no quiet CPU fallback."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ from tsadar_tpu_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tsadar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "optax", "tsadar_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "tsadar_tpu", "cv2", "pandas", "matplotlib")
 
 
 def _forbidden(module):
@@ -44,11 +45,13 @@ def _clean_env():
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, tsadar_tpu_torch, tsadar_tpu_torch.convert\n"
-        "from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, spectrum_tail\n"
-        "from tsadar_tpu_torch.inverse import loops, loss\n"
+        "from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, pv_tables, spectrum_tail\n"
+        "from tsadar_tpu_torch.inverse import fitter, loops, loss\n"
         "from tsadar_tpu_torch.core.params import distributions, spherical, ts_params\n"
         "from tsadar_tpu_torch.core.physics import form_factor, interp, irf, spectrum\n"
-        "from tsadar_tpu_torch.utils import calibration\n"
+        "from tsadar_tpu_torch.utils import calibration, console\n"
+        "from tsadar_tpu_torch.utils.data_handling import hdf4, load_ts_data\n"
+        "from tsadar_tpu_torch.utils.process import correct_throughput, evaluate_background, lineouts, prepare, warpcorr\n"
         f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
@@ -93,6 +96,19 @@ def test_the_port_covers_the_arts_modules():
     from tsadar_tpu_torch.ops import build
 
     assert "chi_bilinear" in build.SOURCES and callable(port.angular_optax)
+
+
+def test_the_port_covers_the_data_pipeline_and_the_last_kernels():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pipeline = {f"tsadar_tpu_torch/utils/data_handling/{m}.py" for m in ("hdf4", "load_ts_data")} | {
+        f"tsadar_tpu_torch/utils/process/{m}.py"
+        for m in ("correct_throughput", "evaluate_background", "lineouts", "prepare", "warpcorr")
+    }
+    assert pipeline | {"tsadar_tpu_torch/ops/pv_tables.py", "tsadar_tpu_torch/inverse/fitter.py"} <= names
+    assert (ROOT / "tsadar_tpu_torch" / "csrc" / "pv_tables.cu").is_file()
+    from tsadar_tpu_torch.ops import build
+
+    assert "pv_tables" in build.SOURCES
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

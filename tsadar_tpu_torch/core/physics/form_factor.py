@@ -9,11 +9,12 @@ species ride a trailing [S] axis.  The 2V path is unbatched, as in JAX: it
 runs the same field functions with B = 1 and returns [G, L, A].
 
 The front half (``_lookups_1v``) forms the electron phase velocities xi_e,
-looks up log f_e there (cubic Hermite) and chi_R on the PV pole table
-(linear); the tail (``_reduced_tail``) is kinematics, ion susceptibility,
+looks up log f_e there (cubic Hermite), builds the chi_R principal-value pole
+table of the EDF (``ratint.pv_tables``: the K9 kernel on the card) and looks
+chi_R up on it (linear); the tail (``_reduced_tail``) is kinematics, ion susceptibility,
 the electron Landau term, the S(k, omega) assembly and the weighted
 angle/gradient sum.  On the card both lookups and the whole tail run as
-hand-written CUDA kernels, forward and backward (``tsadar_tpu_torch/ops``);
+hand-written CUDA kernels, forward and backward (``tsadar_tpu_torch/ops``), as does the pole table;
 on the CPU the plain functions below run, and they are the kernels' oracles.
 
 The 2V path (``calc_in_2D``) projects the 2D EDF onto a dense periodic angle
@@ -266,20 +267,20 @@ class FormFactor:
         lamAxis = np.linspace(lambda_range[0], lambda_range[1], npts)
         self.omgs = as_t(2.0e7 * np.pi * C / lamAxis)  # scattered frequency axis [L], 1/s
 
-        # xi grid of the chi_R pole sweep and its precombined PV matrices;
+        # xi grid of the chi_R pole sweep and the coefficients of its PV tables;
         # interleaved midpoint + node poles give a table of 2 h1 - 5 entries
         minmax, h1 = 8.2, 1024
         xi1 = np.linspace(-minmax - math.sqrt(2.0) / h1, minmax + math.sqrt(2.0) / h1, h1)
         self.xi1 = as_t(xi1)
         self.dxi1 = float(xi1[1] - xi1[0])
-        self._pv_kmid, self._pv_knode = ratint.pv_combined_kernels(h1 - 2, dtype, device)
+        self._pv_coef = ratint.pv_coefficients(h1 - 2, dtype, device)
         mid_poles = 0.5 * (xi1[1:-1] + xi1[0:-2])
         node_poles = xi1[1 : h1 - 2]
         poles = np.zeros(mid_poles.size + node_poles.size)
         poles[0::2], poles[1::2] = mid_poles, node_poles
-        poles = as_t(poles)
-        self.pv_x0 = float(poles[0])
-        self.pv_dx = float(poles[1] - poles[0])
+        self.pv_poles = as_t(poles)  # [2 h1 - 5], the chi_R table's grid
+        self.pv_x0 = float(self.pv_poles[0])
+        self.pv_dx = float(self.pv_poles[1] - self.pv_poles[0])
 
         self.lam_shift = lam_shift
         self.sarad = as_t(np.asarray(scattering_angles["sa"]) * np.pi / 180.0)
@@ -315,12 +316,13 @@ class FormFactor:
         log_fe = torch.log(torch.clamp(fe, min=torch.finfo(fe.dtype).tiny)).contiguous()
         meta = torch.stack([vx[0], vx[1] - vx[0], torch.full_like(vx[0], vx.shape[0])]).expand(B, 3).contiguous()
 
-        ratmod = torch.exp(interp1d_cubic_matmul(self.xi1, vx, log_fe, (-50.0, -50.0)))  # [B, h1]
-        ratdf = _gradient_last(ratmod, self.dxi1)
-        mid_vals, node_vals = ratint.pv_tables_matmul(ratdf, self._pv_kmid, self._pv_knode)
-        table = torch.empty((B, mid_vals.shape[1] + node_vals.shape[1]), dtype=mid_vals.dtype, device=mid_vals.device)
-        table[:, 0::2], table[:, 1::2] = mid_vals, node_vals
+        table = ratint.pv_tables(self._pv_integrand(log_fe, vx), self._pv_coef)  # K9 on the card
         return xie, log_fe, meta, table, (ne, Te, lam, Va, ud, *self._ion_arrays(params))
+
+    def _pv_integrand(self, log_fe, vx):
+        """d f_e / d xi [B, h1] on the pole sweep's grid xi1: the integrand of the PV tables."""
+        ratmod = torch.exp(interp1d_cubic_matmul(self.xi1, vx, log_fe, (-50.0, -50.0)))
+        return _gradient_last(ratmod, self.dxi1).contiguous()
 
     def _lookups_1v(self, params):
         """Every input of the spectrum tail: (lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract)."""

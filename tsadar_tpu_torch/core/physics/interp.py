@@ -15,7 +15,11 @@ path, each with a hand-written CUDA kernel in ``tsadar_tpu_torch/ops``:
   clamped linear interpolation inside each column segment; the math of
   ``periodic_linear_rowmix`` followed by ``select_columns_linear``.
 
-``lin_lookup``, ``cubic_lookup`` and ``chi_bilinear_lookup`` are the
+* ``interp1d_linear_pallas``: the linear lookup on a zero-padded table with its
+  grid in a device tensor, the semantics of the JAX package's wrapper of the same
+  name (which leaves it unwired; the port drives it on the chi_R operands).
+
+``lin_lookup``, ``cubic_lookup``, ``interp1d_linear_pallas`` and ``chi_bilinear_lookup`` are the
 differentiable lookups of ``tsadar_tpu_torch/ops``: a CPU tensor takes the
 plain forms, a CUDA tensor the kernels, forward and backward -- there is no
 fallback from one to the other.  ``interp1d_cubic_matmul`` (the
@@ -113,6 +117,31 @@ def lin_lookup(q, table, x0, dx):
     from ...ops.lin_lookup import LinLookup
 
     return LinLookup.apply(q, table, x0, dx)
+
+
+PAD_BLOCK = 8  # the padded table's length is the next multiple of this above n
+
+
+def interp1d_linear_pallas(xq, x, f):
+    """Linear interpolation of f on the uniform grid x at xq, clamped to the end values.
+
+    ``f`` [n] with ``xq`` of any shape, or per-row tables ``f`` [B, n] with
+    ``xq`` [B, ...]; the result has the shape of ``xq``.  ``f`` is zero-padded to
+    a multiple of PAD_BLOCK (at least n + 1 entries) and the grid (x0, dx, n)
+    goes to the lookup as a device tensor: ``ops.lin_lookup.LinLookupPadded``,
+    the K10 kernel and its backward on the card, the plain forms on the CPU.
+    Differentiable in xq (g slope / dx strictly inside the grid, 0 at and
+    beyond its ends) and in f; x gets no cotangent.
+    """
+    from ...ops.lin_lookup import LinLookupPadded
+
+    n = x.shape[0]
+    rows = f if f.dim() == 2 else f[None]
+    q = xq.reshape(rows.shape[0], -1)
+    fpad = F.pad(rows, (0, (n // PAD_BLOCK + 1) * PAD_BLOCK - n))
+    x = x.detach()
+    meta = torch.stack([x[0], x[1] - x[0], torch.full_like(x[0], n)]).to(f.dtype)
+    return LinLookupPadded.apply(q, fpad, meta).reshape(xq.shape)
 
 
 def cubic_lookup(q, table, meta):

@@ -34,6 +34,17 @@
 // output with global atomicAdd.  Neighbouring queries fall into the same
 // cell, so the shared atomics contend; the order of both kinds of atomics is
 // not fixed, so the last bits of the sums may differ from run to run.
+//
+// K10 (lin_lookup_meta_fwd) replaces tsadar_tpu/ops/interp_kernel.py::lin_interp_pallas,
+// the JAX package's wrapper interp.interp1d_linear_pallas: K1's function on tables
+// zero-padded to a row stride npad >= n + 1, with the grid (x0, dx, n) read from a
+// 3-float device tensor, so a launch reads nothing back to the host.  The padding is
+// never read (i0 + 1 <= n - 1).  The TPU kernel padded the queries to its 4096-query
+// tiles and landed segments with one-hot matmuls; here it is K1's block and cell math,
+// one shared device function each, so the two kernels cannot drift apart.  Its table
+// cotangent (lin_lookup_meta_bwd, for interp1d_linear_pallas's backward) is K2's body
+// reading the same device meta, writing a [B, npad] cotangent (zero past n).  Bounds as
+// K1's and K2's.
 
 #include <cuda_runtime.h>
 
@@ -41,26 +52,30 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads * 8;
+constexpr int kSlab = kThreads * 32;
 
-__global__ void lin_lookup_kernel(const float* __restrict__ q, const float* __restrict__ table,
-                                  float* __restrict__ val, float* __restrict__ slope,
-                                  int Q, int n, float x0, float dx) {
-  extern __shared__ float tab[];
-  const int b = blockIdx.y;
-  const float* row = table + static_cast<size_t>(b) * n;
+// The cell of a query on the grid x0 + dx i, i < n: pos clipped to [0, n-1],
+// i0 = min(floor(pos), n-2), w = pos - i0, with true division.
+__device__ __forceinline__ int lin_cell(float qv, float x0, float dx, int n, float* w) {
+  const float pos = fminf(fmaxf((qv - x0) / dx, 0.0f), static_cast<float>(n - 1));
+  const float i0f = fminf(floorf(pos), static_cast<float>(n - 2));
+  *w = pos - i0f;
+  return static_cast<int>(i0f);
+}
+
+// One block's tile of queries of row b: stage the row's n entries, then (value, slope).
+__device__ __forceinline__ void lookup_tile(const float* __restrict__ q, const float* __restrict__ row,
+                                            float* __restrict__ val, float* __restrict__ slope, float* tab,
+                                            int Q, int n, float x0, float dx) {
   for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) tab[i] = row[i];
   __syncthreads();
 
-  const size_t base = static_cast<size_t>(b) * Q;
-  const float top = static_cast<float>(n - 1);
-  const float last = static_cast<float>(n - 2);
+  const size_t base = static_cast<size_t>(blockIdx.y) * Q;
   const int tile0 = static_cast<int>(blockIdx.x) * kTile;
   const int end = min(Q, tile0 + kTile);
   for (int j = tile0 + static_cast<int>(threadIdx.x); j < end; j += kThreads) {
-    const float pos = fminf(fmaxf((q[base + j] - x0) / dx, 0.0f), top);
-    const float i0f = fminf(floorf(pos), last);
-    const float w = pos - i0f;
-    const int i0 = static_cast<int>(i0f);
+    float w;
+    const int i0 = lin_cell(q[base + j], x0, dx, n, &w);
     const float f0 = tab[i0];
     const float f1 = tab[i0 + 1];
     val[base + j] = f0 * (1.0f - w) + f1 * w;
@@ -68,66 +83,119 @@ __global__ void lin_lookup_kernel(const float* __restrict__ q, const float* __re
   }
 }
 
-constexpr int kSlab = kThreads * 32;
-
-__global__ void lin_lookup_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
-                                      float* __restrict__ dtable, int Q, int n, float x0, float dx) {
-  extern __shared__ float acc[];
-  const int b = blockIdx.y;
-  for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) acc[i] = 0.0f;
+// One block's slab of queries of row b: deposit into a shared accumulator of `width`
+// entries, then add its non-zero entries to the zeroed output row.
+__device__ __forceinline__ void deposit_slab(const float* __restrict__ q, const float* __restrict__ g,
+                                             float* __restrict__ out_row, float* acc, int Q, int n, int width,
+                                             float x0, float dx) {
+  for (int i = static_cast<int>(threadIdx.x); i < width; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
 
-  const size_t base = static_cast<size_t>(b) * Q;
-  const float top = static_cast<float>(n - 1);
-  const float last = static_cast<float>(n - 2);
+  const size_t base = static_cast<size_t>(blockIdx.y) * Q;
   const int slab0 = static_cast<int>(blockIdx.x) * kSlab;
   const int end = min(Q, slab0 + kSlab);
   for (int j = slab0 + static_cast<int>(threadIdx.x); j < end; j += kThreads) {
-    const float pos = fminf(fmaxf((q[base + j] - x0) / dx, 0.0f), top);
-    const float i0f = fminf(floorf(pos), last);
-    const float w = pos - i0f;
-    const int i0 = static_cast<int>(i0f);
+    float w;
+    const int i0 = lin_cell(q[base + j], x0, dx, n, &w);
     const float gj = g[base + j];
     atomicAdd(&acc[i0], gj * (1.0f - w));
     atomicAdd(&acc[i0 + 1], gj * w);
   }
   __syncthreads();
 
-  float* row = dtable + static_cast<size_t>(b) * n;
-  for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) {
+  for (int i = static_cast<int>(threadIdx.x); i < width; i += kThreads) {
     const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&row[i], v);
+    if (v != 0.0f) atomicAdd(&out_row[i], v);
   }
 }
 
+// The padded kernels' grid: n from the device meta, kept inside the staged row
+// (the caller guarantees 2 <= n <= npad - 1).
+__device__ __forceinline__ int meta_n(const float* meta, int npad) {
+  return max(2, min(static_cast<int>(meta[2]), npad - 1));
+}
+
+__global__ void lin_lookup_kernel(const float* __restrict__ q, const float* __restrict__ table,
+                                  float* __restrict__ val, float* __restrict__ slope,
+                                  int Q, int n, float x0, float dx) {
+  extern __shared__ float tab[];
+  lookup_tile(q, table + static_cast<size_t>(blockIdx.y) * n, val, slope, tab, Q, n, x0, dx);
+}
+
+__global__ void lin_lookup_meta_kernel(const float* __restrict__ q, const float* __restrict__ table,
+                                       const float* __restrict__ meta, float* __restrict__ val,
+                                       float* __restrict__ slope, int Q, int npad) {
+  extern __shared__ float tab[];
+  lookup_tile(q, table + static_cast<size_t>(blockIdx.y) * npad, val, slope, tab, Q, meta_n(meta, npad), meta[0],
+              meta[1]);
+}
+
+__global__ void lin_lookup_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                                      float* __restrict__ dtable, int Q, int n, float x0, float dx) {
+  extern __shared__ float acc[];
+  deposit_slab(q, g, dtable + static_cast<size_t>(blockIdx.y) * n, acc, Q, n, n, x0, dx);
+}
+
+__global__ void lin_lookup_meta_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
+                                           const float* __restrict__ meta, float* __restrict__ dtable, int Q,
+                                           int npad) {
+  extern __shared__ float acc[];
+  deposit_slab(q, g, dtable + static_cast<size_t>(blockIdx.y) * npad, acc, Q, meta_n(meta, npad), npad, meta[0],
+               meta[1]);
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem > 48 * 1024) {
+    return static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+  }
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int lin_lookup_fwd(const void* q, const void* table, void* val, void* slope,
+                              int B, int Q, int n, float x0, float dx, void* stream) {
+  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  if (int err = set_smem(reinterpret_cast<const void*>(lin_lookup_kernel), smem)) return err;
+  const dim3 grid((Q + kTile - 1) / kTile, B);
+  lin_lookup_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(table), static_cast<float*>(val),
+      static_cast<float*>(slope), Q, n, x0, dx);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // dtable [B, n] must arrive zeroed.
 extern "C" int lin_lookup_bwd(const void* q, const void* g, void* dtable, int B, int Q, int n, float x0, float dx,
                               void* stream) {
   const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(lin_lookup_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (int err = set_smem(reinterpret_cast<const void*>(lin_lookup_bwd_kernel), smem)) return err;
   const dim3 grid((Q + kSlab - 1) / kSlab, B);
   lin_lookup_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(g), static_cast<float*>(dtable), Q, n, x0, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int lin_lookup_fwd(const void* q, const void* table, void* val, void* slope,
-                              int B, int Q, int n, float x0, float dx, void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(lin_lookup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+// table [B, npad], meta [3] = (x0, dx, n) on the device.
+extern "C" int lin_lookup_meta_fwd(const void* q, const void* table, const void* meta, void* val, void* slope,
+                                   int B, int Q, int npad, void* stream) {
+  const size_t smem = static_cast<size_t>(npad) * sizeof(float);
+  if (int err = set_smem(reinterpret_cast<const void*>(lin_lookup_meta_kernel), smem)) return err;
   const dim3 grid((Q + kTile - 1) / kTile, B);
-  lin_lookup_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(table), static_cast<float*>(val),
-      static_cast<float*>(slope), Q, n, x0, dx);
+  lin_lookup_meta_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(table), static_cast<const float*>(meta),
+      static_cast<float*>(val), static_cast<float*>(slope), Q, npad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtable [B, npad] must arrive zeroed; entries from n on stay zero.
+extern "C" int lin_lookup_meta_bwd(const void* q, const void* g, const void* meta, void* dtable, int B, int Q,
+                                   int npad, void* stream) {
+  const size_t smem = static_cast<size_t>(npad) * sizeof(float);
+  if (int err = set_smem(reinterpret_cast<const void*>(lin_lookup_meta_bwd_kernel), smem)) return err;
+  const dim3 grid((Q + kSlab - 1) / kSlab, B);
+  lin_lookup_meta_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(g), static_cast<const float*>(meta),
+      static_cast<float*>(dtable), Q, npad);
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,10 +19,10 @@ def resolve_device(device=None) -> torch.device:
                 "tsadar_tpu_torch runs on a CUDA device unless told otherwise, and none is "
                 "available; pass device='cpu' to run the plain PyTorch path on the CPU"
             )
-        # Full-f32 matmuls, set explicitly: the PV pole tables are f32 products
-        # against a precombined f64-built matrix, and reduced matmul precision
-        # (TF32 keeps ~3 decimal digits) wrecks them -- the JAX diagnostic
-        # forces "highest" precision for the same reason.
+        # Full-f32 matmuls, set explicitly: the 2V path's PV pole tables are f32
+        # products against a precombined f64-built matrix, and reduced matmul
+        # precision (TF32 keeps ~3 decimal digits) wrecks them -- the JAX
+        # diagnostic forces "highest" precision for the same reason.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif device.type != "cpu":

@@ -1,9 +1,10 @@
-"""Probe-beam scattering angles and aperture weights of the OMEGA Thomson diagnostic.
+"""Calibrations of the OMEGA Thomson diagnostic: a copy of ``tsadar_tpu.utils.data_handling.calibration``.
 
-A copy of the beam table of ``tsadar_tpu.utils.data_handling.calibration``
-(instrument facts, kept verbatim), and its angular (ARTS) arm: the fine
-scattering angles, the [camera angle, fine angle] weight matrix and the camera's
-angle axis, from the port's own copy of ``arts_angular.npz``.
+The probe-beam scattering angles and aperture weights (instrument facts, kept
+verbatim), the angular (ARTS) geometry -- the fine scattering angles, the
+[camera angle, fine angle] weight matrix and the camera's angle axis, from the
+port's own copy of ``arts_angular.npz`` -- and the shot-ranged spectral and
+time/space calibrations of the angular, temporal and imaging instruments.
 """
 
 import os
@@ -93,20 +94,129 @@ def get_scattering_angles(config: Dict) -> Dict:
 
 
 def get_calibrations(shotNum, tstype, t0, CCDsize):
-    """(axisxE, axisxI, axisyE, axisyI, magE, stddev) of the angular (ARTS) instrument.
+    """Shot-ranged dispersions, offsets, IRF widths, and axis scales of the OMEGA instruments.
 
-    The angular arm of ``tsadar_tpu``'s ``get_calibrations``: shot-ranged EPW
-    dispersion and offset, the instrument widths, the camera's angle axis as
-    axisxE.  The temporal and imaging arms come with the host data pipeline.
+    Returns (axisxE, axisxI, axisyE, axisyI, magE, stddev) for spectype
+    "angular" (ARTS: the camera's angle axis as axisxE), "temporal" (streaked:
+    time axes from t0 and the sweep magnification) and "imaging" (space axes
+    about the target-chamber centre); the numbers are instrument facts, kept
+    verbatim from ``tsadar_tpu.utils.data_handling.calibration``.
     """
-    if tstype != "angular":
-        raise NotImplementedError(f"calibrations of spectype {tstype!r} are not ported yet (ROADMAP.md §1 item 8)")
-    if shotNum < 95000:
-        EPWDisp, EPWoff = 0.214116, 449.5272
-    else:  # calibrations from 7-26-22, same for >= 105000
-        EPWDisp, EPWoff = 0.2129, 439.8
-    IAWDisp, IAWoff = 1, 1  # ARTS does not measure ion spectra
-    stddev = {"spect_stddev_ion": 1, "spect_FWHM_ele": 0.9, "spect_stddev_ele": 0.9 / 2.3548, "ang_FWHM_ele": 1}
+    stddev = {}
+    if tstype == "angular":
+        if shotNum < 95000:
+            EPWDisp, EPWoff = 0.214116, 449.5272
+        else:  # calibrations from 7-26-22 pending upstream, same for >=105000
+            EPWDisp, EPWoff = 0.2129, 439.8
+        IAWDisp, IAWoff = 1, 1  # ARTS does not measure ion spectra
+        stddev["spect_stddev_ion"] = 1
+        magE = 1
+        stddev["spect_FWHM_ele"] = 0.9  # ~0.8-0.9 for H2
+        stddev["spect_stddev_ele"] = stddev["spect_FWHM_ele"] / 2.3548
+        stddev["ang_FWHM_ele"] = 1  # ~1-1.2
+
+    elif tstype == "temporal":
+        if 98610 < shotNum < 98620:
+            EPWDisp, IAWDisp = 0.4104, 0.00678
+            EPWoff, IAWoff = 319.3, 522.894
+            stddev["spect_stddev_ion"] = 0.0238
+            stddev["spect_stddev_ele"] = 1.4294
+            magI = magE = 5
+        elif shotNum < 105000:
+            EPWDisp, IAWDisp = 0.4104, 0.00678
+            EPWoff, IAWoff = 319.3, 523.1
+            stddev["spect_stddev_ion"] = 0.02262
+            stddev["spect_stddev_ele"] = 1.4294
+            magI = magE = 5
+        elif shotNum < 108950:  # shot 108135 calibrations
+            EPWDisp, IAWDisp = 0.4104, 0.005749
+            EPWoff, IAWoff = 319.3, 523.3438
+            stddev["spect_stddev_ion"] = 0.0153
+            stddev["spect_stddev_ele"] = 1.4294
+            magI = magE = 5
+        elif shotNum < 108990:  # shots 108964-
+            EPWDisp, IAWDisp = 0.4104, 0.00959
+            EPWoff, IAWoff = 135.0, 346.09
+            stddev["spect_stddev_ion"] = 0.0153
+            stddev["spect_stddev_ele"] = 1.4294
+            magI = magE = 5
+        elif 111410 < shotNum < 111435:
+            EPWDisp, IAWDisp = 0.4104, 0.00678
+            EPWoff, IAWoff = 317.4, 522.92
+            stddev["spect_stddev_ion"] = 0.0153
+            stddev["spect_stddev_ele"] = 0.668  # from Hg lamp data
+            magI, magE = 5.23, 5.35
+        elif 114907 < shotNum < 115920:  # 3w CBET study
+            EPWDisp, IAWDisp = 0.4153, 0.00366
+            EPWoff, IAWoff = 135.74, 349.10
+            stddev["spect_stddev_ion"] = 0.0153
+            stddev["spect_stddev_ele"] = 0.668
+            magI, magE = 5.23, 5.35
+        else:
+            EPWDisp, IAWDisp = 0.4104, 0.00678
+            EPWoff, IAWoff = 319.3, 522.90
+            stddev["spect_stddev_ion"] = 0.02262
+            stddev["spect_stddev_ele"] = 1.4294
+            magI = magE = 5
+
+    else:  # imaging
+        if shotNum < 104000:
+            EPWDisp, IAWDisp = 0.27093, 0.00438
+            EPWoff, IAWoff = 396.256, 524.275
+            stddev["spect_stddev_ion"] = 0.028
+            stddev["spect_stddev_ele"] = 1.4365
+            magI, magE = 2.87, 5.10
+            EPWtcc = 1024 - 456.1
+            IAWtcc = 1024 - 519
+        elif 106303 <= shotNum <= 106321:  # refractive telescope 11/8/22
+            EPWDisp, IAWDisp = 0.27594, 0.00437
+            EPWoff, IAWoff = 388.256, 524.345
+            stddev["spect_stddev_ion"] = 0.028
+            stddev["spect_stddev_ele"] = 1.1024
+            magI = 2.89 / 0.3746 * 1.118
+            magE = 5.13 / 0.36175 * 1.118
+            EPWtcc = 1024 - 503
+            IAWtcc = 1024 - 568
+        elif 107620 <= shotNum <= 107633:  # refractive telescope 3/9/23
+            EPWDisp, IAWDisp = 0.27594, 0.005701
+            EPWoff, IAWoff = 388.256, 524.345
+            stddev["spect_stddev_ion"] = 0.028
+            stddev["spect_stddev_ele"] = 1.1024
+            magI = 2.89 / 0.3746 * 1.118
+            magE = 5.13 / 0.36175 * 1.118
+            EPWtcc = 1024 - 503
+            IAWtcc = 1024 - 568
+        elif shotNum == 112059:
+            EPWDisp, IAWDisp = 0.277, 0.00448
+            EPWoff, IAWoff = 381.141905, 524.1416133146356
+            stddev["spect_stddev_ion"] = 0.007838851799629626
+            stddev["spect_stddev_ele"] = 0.5348962893498197
+            magI, magE = 2.88, 5.13
+            EPWtcc = 544.6141
+            IAWtcc = 526.4255994117018
+        else:
+            EPWDisp, IAWDisp = 0.27093, 0.00437
+            EPWoff, IAWoff = 396.256, 524.275
+            stddev["spect_stddev_ion"] = 0.028
+            stddev["spect_stddev_ele"] = 1.4365
+            magI = 2.89 * 1.079
+            magE = 5.13 * 1.079
+            EPWtcc = 1024 - 516
+            IAWtcc = 1024 - 450
+
     axisy = np.arange(1, CCDsize[0] + 1)
-    axisxE, _ = _arts_assets()
-    return axisxE, np.arange(1, CCDsize[1] + 1), axisy * EPWDisp + EPWoff, axisy * IAWDisp + IAWoff, 1, stddev
+    axisyE = axisy * EPWDisp + EPWoff  # nm
+    axisyI = axisy * IAWDisp + IAWoff  # nm
+
+    if tstype != "angular":
+        axisx = np.arange(1, CCDsize[1] + 1)
+        axisxE = (axisx - t0[1]) * magE  # ps or um
+        axisxI = (axisx - t0[0]) * magI
+        if tstype == "imaging":
+            axisxE = axisxE - EPWtcc * magE
+            axisxI = axisxI - IAWtcc * magI
+    else:
+        axisxE, _ = _arts_assets()
+        axisxI = np.arange(1, CCDsize[1] + 1)
+
+    return axisxE, axisxI, axisyE, axisyI, magE, stddev
