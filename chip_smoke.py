@@ -15,7 +15,8 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    pixels 300:812:4; host seconds and shapes), the 128-lineout forward at the
    deck's start values (K1, K3, K5 and the pole tables K9 once each), K9 in
    both modes and K10 with its backward against their twins on that forward's
-   own operands and on seeded ones, K10's path (``interp1d_linear_pallas`` on
+   own operands and on seeded ones, K6 against its twin and K5 and K6 timed on
+   that forward's operands, K10's path (``interp1d_linear_pallas`` on
    the real chi_R table and queries, forward and backward, against K1/K2),
    loss and gradient of 4 real lineouts against the CPU float64 plain path,
    and FIT_STEPS adam steps at lr 2e-2 (K1-K6 and both K9 modes once per
@@ -60,6 +61,7 @@ exits 2.
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -140,7 +142,8 @@ ARTS_FIT_DROP = 0.25  # last loss under this share of the first (the JAX ARTS be
 # table's (cotangent's) largest |entry|: the precombined form's float32 error is ~2e-7 (one f32 product
 # per coefficient, sums over 1024 nodes); against the float32 twin (two cuBLAS products) the same limit
 PV_TOL = 1e-5
-PV_PARTIAL_B = 5  # a K9 check on a batch that is not a multiple of the kernel's 4 rows per block
+PV_PARTIAL_B = 5  # a K9 check on a batch that is not a multiple of the kernel's 32 lineouts per block
+PV_RAGGED = (37, 1300)  # (B, N): neither the batch nor the 1298 poles a multiple of the kernel's 32 x 128 tile
 # the real-data fit (bench_whole_shot.py): 128 lineouts of shot 101675, pixels 300:812:4, 200 adam
 # steps at lr 2e-2, and bench_whole_shot.py's own quality gate at the lineouts of pixels 500-510
 # (tests/test_inverse/test_1d_data.py's validated values and tolerances), with its loss ceilings
@@ -152,6 +155,7 @@ REAL_FIT_SECONDS = 60.0
 REAL_CHECK_PIXELS = (500, 504, 508, 512)  # the 4 real lineouts of the loss/gradient check
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 SLEEP_CYCLES = 400_000_000  # ~0.2 s: lets the host queue every timed launch before the first runs
 
 
@@ -180,9 +184,31 @@ def device_times_ms(fn, reps=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound_ms(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+def bound_ms(nbytes, nops, ops_per_s=F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sass_instructions(name):
+    """Static SASS instructions per kernel of the built library ``name``, from ``cuobjdump -sass`` beside
+    nvcc (the listing is kept beside the library, ``.sass``); None where there is no cuobjdump."""
+    from tsadar_tpu_torch.ops import build
+
+    tool = Path(build._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    so = build.library_path(name)[1]
+    sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    so.with_suffix(".sass").write_text(sass)
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            fn = head.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn] += 1
+    return counts
 
 
 def max_err(got, want):
@@ -406,36 +432,48 @@ def tail_bwd_misses(label, g, args, report):
     return ok, worst
 
 
-def two_species_tail_case(rng, device):
+def two_species_tail_case(rng, device, n_angles=3, L=96):
     """(g, the tail's fourteen arguments) of a small synthetic case for the branches of K6
     that the one-species main path does not run: two gradient points, two ion species
-    (the Zbar coupling), flow and drift, three angles with a weight each, 96 wavelengths
-    over 450-650 nm, some of them inside the ion-acoustic feature."""
+    (the Zbar coupling), flow and drift, ``n_angles`` angles over 55-65 degrees with a weight
+    each, ``L`` wavelengths over 450-650 nm, some of them inside the ion-acoustic feature."""
     import torch
 
     from tsadar_tpu_torch.core.physics.constants import C
     from tsadar_tpu_torch.core.physics.form_factor import _kinematics_fields
 
-    B, L = 3, 96
+    B = 3
     t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
     ne = t(1e20 * rng.uniform(0.15, 0.3, (B, 2)))
     Te = t(rng.uniform(0.4, 0.9, (B, 2)))
     lam, Va, ud = t(rng.uniform(525.0, 528.0, B)), t(1e6 * rng.uniform(-0.5, 0.5, B)), t(1e6 * rng.uniform(-0.5, 0.5, B))
     A, Z = t(np.tile([40.0, 1.0], (B, 1))), t(np.tile([8.0, 1.0], (B, 1)))
     Ti, fract = t(rng.uniform(0.1, 0.3, (B, 2))), t(np.tile([0.7, 0.3], (B, 1)))
-    sarad = t(np.deg2rad([55.0, 60.0, 65.0]))
+    sarad = t(np.deg2rad(np.linspace(55.0, 65.0, n_angles)))
     omgs = t(2.0e7 * np.pi * C / np.linspace(450.0, 650.0, L))
     xie = _kinematics_fields(sarad, omgs, ne, Te, lam, Va, ud)[-1]
     lf = (-0.5 * xie**2 - 0.92).contiguous()  # a Maxwellian's log f_e at the phase velocities
     chi = (1.0 / (1.0 + xie**2) - 0.5).contiguous()  # smooth and O(1), like chi_R
     g = t(rng.standard_normal((B, L)))
-    return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t([0.5, 0.3, 0.2]), sarad, omgs)
+    return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t(np.resize([0.5, 0.3, 0.2], n_angles)), sarad, omgs)
+
+
+# wavelength counts at K6's block edges (it owns 127 wavelengths a block, its thread 0 being the left
+# halo): one wavelength, fewer than a block, and one past a multiple of the block's owned width; cut from
+# the main path's operands (2 lineouts) around TAIL_BWD_RAGGED_NM, inside the deck's EPW fit window
+TAIL_BWD_RAGGED_L = (1, 50, 2 * 127 + 1)
+TAIL_BWD_RAGGED_NM = 480.0
+# (angles, wavelengths) of a K6 case whose angles the kernel stages in several chunks of at most 12, the
+# last one narrower, over three blocks of wavelengths; drawn from its own generator
+TAIL_BWD_MANY_ANGLES = (70, 300)
 
 
 def check_tail_bwd(diag, params, rng):
     """K6 on the forward's own lookup outputs and a seeded cotangent g [128, 5120] that
-    is zero inside the iawfilter band, as the loss's fit windows make it; and on a small
-    case with two gradient points and two species.  Same limits for both."""
+    is zero inside the iawfilter band, as the loss's fit windows make it; on a small
+    case with two gradient points and two species, and on that case at TAIL_BWD_MANY_ANGLES;
+    and on 2 lineouts of the main operands cut to TAIL_BWD_RAGGED_L wavelengths (the block
+    edges).  Same limits for all."""
     import torch
 
     from tsadar_tpu_torch.core.physics.constants import C
@@ -453,6 +491,15 @@ def check_tail_bwd(diag, params, rng):
     report = {}
     ok, worst = tail_bwd_misses("main", noise, args, report)  # max_abs_err is the main path's
     ok = tail_bwd_misses("two_species", *two_species_tail_case(rng, ff.omgs.device), report)[0] and ok
+    n_angles, n_wavelengths = TAIL_BWD_MANY_ANGLES
+    many = two_species_tail_case(np.random.default_rng(SEED + 1), ff.omgs.device, n_angles, n_wavelengths)
+    ok = tail_bwd_misses(f"A{n_angles}", *many, report)[0] and ok
+    l_mid = int((lam - TAIL_BWD_RAGGED_NM).abs().argmin())
+    for width in TAIL_BWD_RAGGED_L:
+        cut = slice(l_mid - width // 2, l_mid - width // 2 + width)
+        rows = (args[0][:2, :, cut].contiguous(), args[1][:2, :, cut].contiguous(), *(a[:2] for a in args[2:11]),
+                *args[11:13], args[13][cut].contiguous())
+        ok = tail_bwd_misses(f"L{width}", noise[:2, cut].contiguous(), rows, report)[0] and ok
     emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "max_abs_err": worst, "per_output": report, "ok": ok})
     if not ok:
         bad = {n: r for n, r in report.items() if not r["ok"]}
@@ -468,6 +515,35 @@ def check_tail_bwd(diag, params, rng):
         max_abs_err=worst, ms=device_times_ms(kern), plain_ms=device_times_ms(plain, reps=5, warmup=1), bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
     )
+
+
+def check_tail_real(diag, params, rng):
+    """K5 and K6 on the real-data forward's own operands (its lookups at the deck's start values, the
+    128 lineouts of shot 101675): K6 against its float64 twin per output at the main case's limits, on
+    a seeded cotangent that is zero inside the iawfilter band; both kernels timed there.  Returns
+    {kernel: {"real_data_ms": ms}}."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.constants import C
+    from tsadar_tpu_torch.ops import spectrum_tail
+
+    ff = diag.model.electron_form_factor
+    inputs = ff._lookups_1v(params())
+    args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
+    B, G, L, NA = inputs[0].shape
+    blue, red, _ = diag.model._filter_band()
+    lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
+    noise = torch.tensor(rng.standard_normal((B, L)), dtype=torch.float32, device=ff.omgs.device)
+    noise = torch.where((lam > blue) & (lam < red), 0.0, noise)
+    report = {}
+    ok, worst = tail_bwd_misses("real_data", noise, args, report)
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "shapes": "real_data", "operands": [B, G, L, NA],
+          "max_abs_err": worst, "per_output": report, "ok": ok})
+    if not ok:
+        bad = {n: r for n, r in report.items() if not r["ok"]}
+        raise RuntimeError(f"spectrum_tail_bwd on the real-data operands: cotangents miss the float64 twin: {bad}")
+    return {"spectrum_tail_fwd": {"real_data_ms": device_times_ms(lambda: spectrum_tail.spectrum_tail_fwd(*args))},
+            "spectrum_tail_bwd": {"real_data_ms": device_times_ms(lambda: spectrum_tail.spectrum_tail_bwd(noise, *args))}}
 
 
 def profile_run(run, units, unit_ms, phase, unit, top=10):
@@ -876,7 +952,7 @@ def check_lookups_arts_1v(cfg, sas, rng):
     """K1, K3 and K9 at the ARTS 1V deck's shapes -- one row, 2048 x 241 queries, the 2043-entry pole
     table, the 256-point log-EDF and the PV integrand [1, 1024] as the forward builds them -- on the
     deck's own operands (K9's transposed mode on a seeded cotangent).  K9 is held to its float32 and
-    float64 twins at PV_TOL of max |table|, one row being a partial block of its 4.  K1 and K3 are
+    float64 twins at PV_TOL of max |table|, one row being a partial block of its 32.  K1 and K3 are
     held to their twins in float32 (every query) and in float64 on the same float32 operands, at
     LOOKUP_TOL of max |table|.  K1's second output jumps from cell to cell: against float64 it is compared where
     both precisions put the query into the same cell, and the others are counted.  K3 extrapolates
@@ -1052,9 +1128,11 @@ def pv_case(label, f, g, coef):
 
 def check_pv_tables(rng, ratdf):
     """K9, both modes, at the main path's shapes (B = 128, N = 1024): seeded smooth integrands and
-    cotangents, the same on their first PV_PARTIAL_B rows (the last block of kRows = 4 lineouts partly
-    empty: the kernels' row guards), and the real-data forward's own integrand ``ratdf``; times of the
-    kernels, their twins and one torch.matmul with the concatenated dense matrices (the same function)."""
+    cotangents, the same on their first PV_PARTIAL_B rows (the block of 32 lineouts partly empty: the
+    kernels' row guards), seeded operands at PV_RAGGED (a pole count and a batch off the kernel's tile, two
+    segments of the contraction for some blocks), and the real-data forward's own integrand
+    ``ratdf``; times of the kernels, their twins and one torch.matmul with the concatenated dense matrices
+    (the same function)."""
     import torch
 
     from tsadar_tpu_torch.core.physics import ratint
@@ -1069,7 +1147,12 @@ def check_pv_tables(rng, ratdf):
     f = torch.tensor(seeded, dtype=torch.float32, device=dev)
     g = torch.tensor(rng.standard_normal((B, 2 * m - 1)), dtype=torch.float32, device=dev)
     report, ok, worst = pv_case("seeded", f, g, coef)
-    for case in (pv_case(f"seeded_B{PV_PARTIAL_B}", f[:PV_PARTIAL_B], g[:PV_PARTIAL_B], coef), pv_case("real_data_ratdf", ratdf, g, coef)):
+    rb, rn = PV_RAGGED
+    vr = np.linspace(-8.2, 8.2, rn)
+    fr = torch.tensor(-vr * np.exp(-(vr[None, :] ** 2) / 2.0) + 1e-3 * rng.standard_normal((rb, rn)), dtype=torch.float32, device=dev)
+    gr = torch.tensor(rng.standard_normal((rb, 2 * rn - 5)), dtype=torch.float32, device=dev)
+    ragged = pv_case(f"seeded_B{rb}_N{rn}", fr, gr, ratint.pv_coefficients(rn - 2, torch.float32, dev))
+    for case in (pv_case(f"seeded_B{PV_PARTIAL_B}", f[:PV_PARTIAL_B], g[:PV_PARTIAL_B], coef), ragged, pv_case("real_data_ratdf", ratdf, g, coef)):
         report |= case[0]
         ok = ok and case[1]
     emit({"phase": "kernel_check", "kernel": "pv_tables_fwd+bwd", "B": B, "N": n, "tol": PV_TOL, "cases": report, "ok": ok})
@@ -1079,14 +1162,17 @@ def check_pv_tables(rng, ratdf):
     kcat = torch.cat(ratint.pv_dense(m, torch.float32, dev), dim=1)  # [n, 2m], the twin's cached pair
     gcat = torch.cat([g[:, 0::2], g[:, 1::2], torch.zeros((B, 1), dtype=g.dtype, device=dev)], dim=1)
     nbytes = 4 * (B * n + B * (2 * m - 1) + 8 * m)
-    b_ms, b_by = bound_ms(nbytes, 2 * 2 * B * n * m)
+    nops = 2 * 2 * B * n * m  # two tables, a multiply and an add per term
+    # the kernels run it on the tensor cores at float32 accuracy: three TF32 products a term (3xTF32)
+    b_ms, b_by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
+    simt = {"bound_f32_simt_ms": bound_ms(nbytes, nops)[0]}  # the same terms as float32 FMAs outside them
     rows = {
         "pv_tables_fwd": dict(max_abs_err=worst["fwd"], ms=device_times_ms(lambda: pv_tables.pv_tables_fwd(ratdf, coef)),
                               plain_ms=device_times_ms(lambda: pv_tables.plain(ratdf, coef)), bound_ms=b_ms, bound_by=b_by,
-                              library_ms=device_times_ms(lambda: torch.matmul(ratdf, kcat))),
+                              library_ms=device_times_ms(lambda: torch.matmul(ratdf, kcat)), **simt),
         "pv_tables_bwd": dict(max_abs_err=worst["bwd"], ms=device_times_ms(lambda: pv_tables.pv_tables_bwd(g, coef)),
                               plain_ms=device_times_ms(lambda: pv_tables.plain_bwd(g, coef)), bound_ms=b_ms, bound_by=b_by,
-                              library_ms=device_times_ms(lambda: torch.matmul(gcat, kcat.T))),
+                              library_ms=device_times_ms(lambda: torch.matmul(gcat, kcat.T)), **simt),
     }
     return rows
 
@@ -1357,7 +1443,9 @@ def main():
     t0 = time.perf_counter()
     logs = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": list(build.SOURCES),
-          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln] for k, v in logs.items()}})
+          "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+                    for k, v in logs.items()}})
+    emit({"phase": "sass", "instructions": {k: sass_instructions(k) for k in build.SOURCES}})
 
     cfg = load_deck()
     sas = get_scattering_angles(cfg)
@@ -1398,6 +1486,8 @@ def main():
     with torch.no_grad():
         ratdf, chi_table, chi_poles, xie = real_operands(real_loss_fn, real_params)
         rows |= check_pv_tables(rng, ratdf)
+        for k, extra in check_tail_real(real_loss_fn.ts_diag, real_params, rng).items():
+            rows[k] |= extra
         rows |= check_lin_lookup_meta(rng, chi_table, chi_poles, xie)
     padded_launches = real_data_lookup_padded(chi_table, chi_poles, xie, wrappers)
     real_data_grad_check(real_cfg, real_sa, real_all)

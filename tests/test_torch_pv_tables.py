@@ -11,8 +11,15 @@
   though the kernel runs only on the card.
 * The transposed mode (``plain_bwd`` and ``PvTables``'s backward) against
   ``jax.vjp`` of ``ratint.pv_tables_matmul``, to 1e-12 of the largest entry.
+* A float64 model of the kernel's loop structure (``pv_tables.cu``): the tiles of
+  outputs x lineouts, each warp's mma tiles with their B fragments read from the
+  Toeplitz coefficient window, the window and operands staged by the kernel's
+  index rule, the special rows 0, m, m + 1, the segments of the contraction
+  shared by several blocks and the ordered sum of their shares; against ``ratint.pv_tables_matmul`` in both modes, to
+  1e-12 of max, at pole counts and batches on and off the tile.  This is the only
+  check of the kernel's index math that runs without a card.
 * On a card: the kernel, both modes, against the float64 twin, at B = 128 and
-  at a B that leaves the last block of 4 lineouts partly empty.
+  at a B that leaves the block of 32 lineouts partly empty.
 """
 
 import jax
@@ -42,6 +49,112 @@ def _twin(f):
 
 def _rel(got, want):
     return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(np.asarray(want)).max())
+
+
+OUT, ROWS, CHUNK, SPLIT = pv_tables.TILE_OUT, pv_tables.TILE_ROWS, pv_tables.CHUNK, pv_tables.SPLIT
+
+
+def _window(c, idx0, sign, m):
+    """``stage_window`` for every tile at once: cw[tile, u] = c[idx0[tile] + sign u] inside [0, 2m - 1), else 0."""
+    i = np.asarray(idx0)[:, None] + sign * np.arange(CHUNK + OUT - 1)[None, :]
+    return np.where((i >= 0) & (i < 2 * m - 1), c[np.clip(i, 0, 2 * m - 2)], 0.0)
+
+
+def _warp_steps(acc, cw, xs):
+    """One staged segment through every warp's mma tiles: acc [tiles, OUT, rows] += K xs.  Per step of 8
+    contraction indices from kl, warp w's tile nt covers outputs pl .. pl + 7, pl = 32 (w % 4) + 8 nt; its B
+    fragment is read from the window (lane (gid, tig): K at (kl + k, pl + n) = cw[kl - pl + OUT - 1 + k - n]
+    for k = tig, tig + 4 and n = gid) and its A fragment is the staged operand at (kl + k, lineout)."""
+    k = np.arange(8)
+    for kl in range(0, CHUNK, 8):
+        for w in range(OUT // 32):
+            for nt in range(4):
+                pl = 32 * w + 8 * nt
+                b = cw[:, kl - pl + OUT - 1 + k[:, None] - k[None, :]]  # [tiles, k, n]
+                acc[:, pl : pl + 8, :] += np.einsum("tkn,kr->tnr", b, xs[kl : kl + 8])
+
+
+def _ordered_sum(parts):
+    total = np.zeros_like(parts[0])
+    for part in parts:  # rank order
+        total = total + part
+    return total
+
+
+def _model_fwd(f, coef):
+    """pv_tables_fwd_kernel in float64: f [B, n], coef [2, 4m] -> [B, 2m - 1]."""
+    B, n = f.shape
+    m = n - 2
+    tiles, rows = -(-m // OUT), -(-B // ROWS) * ROWS
+    o0 = np.arange(tiles) * OUT
+    fp = np.zeros((rows, n))
+    fp[:B] = f
+    parts = np.zeros((SPLIT, 2, tiles, OUT, rows))
+    p = o0[:, None] + np.arange(OUT)
+    for rank in range(SPLIT):
+        for k0 in range(rank * CHUNK, n, SPLIT * CHUNK):
+            j = k0 + np.arange(CHUNK)
+            xs = np.where(((j >= 1) & (j < m))[:, None], fp[:, np.clip(j, 0, n - 1)].T, 0.0)
+            for t in range(2):
+                _warp_steps(parts[rank, t], _window(coef[t], k0 - o0 - (OUT - 1) + m - 1, 1, m), xs)
+        for t in range(2):
+            for node, off, here in ((0, 2 * m, rank == 0), (m, 3 * m, (m // CHUNK) % SPLIT == rank)):
+                if here:
+                    k = np.where(p < m, coef[t][np.clip(off + p, 0, 4 * m - 1)], 0.0)
+                    parts[rank, t] += k[:, :, None] * fp[None, None, :, node]
+    total = _ordered_sum(parts)  # [2, tiles, OUT, rows]
+    out = np.zeros((rows, 2 * tiles * OUT))
+    out[:, 0::2], out[:, 1::2] = total[0].reshape(-1, rows).T, total[1].reshape(-1, rows).T
+    return out[:B, : 2 * m - 1]
+
+
+def _model_bwd(g, coef):
+    """pv_tables_bwd_kernel in float64: g [B, 2m - 1], coef [2, 4m] -> [B, m + 2]."""
+    B, width = g.shape
+    m = (width + 1) // 2
+    n = m + 2
+    tiles, rows = -(-n // OUT), -(-B // ROWS) * ROWS
+    o0 = np.arange(tiles) * OUT
+    gp = np.zeros((rows, width))
+    gp[:B] = g
+    parts = np.zeros((SPLIT, tiles, OUT, rows))
+    for rank in range(SPLIT):
+        special = np.zeros((2, rows))  # this block's share of nodes 0 and m
+        for k0 in range(rank * CHUNK, m, SPLIT * CHUNK):
+            k = 2 * k0 + np.arange(2 * CHUNK)
+            val = np.where(k < width, gp[:, np.clip(k, 0, width - 1)], 0.0)
+            xs = (val[:, 0::2].T, val[:, 1::2].T)  # g_mid, g_node [CHUNK, rows]
+            pole = k0 + np.arange(CHUNK)
+            for t in range(2):
+                _warp_steps(parts[rank], _window(coef[t], o0 - k0 + OUT + m - 2, -1, m), xs[t])
+                for sel, off in ((0, 2 * m), (1, 3 * m)):
+                    kr = np.where(pole < m, coef[t][np.clip(off + pole, 0, 4 * m - 1)], 0.0)
+                    special[sel] += (kr[:, None] * xs[t]).sum(0)
+        for sel, node in ((0, 0), (1, m)):
+            parts[rank, node // OUT, node % OUT] = special[sel]
+        parts[rank, (m + 1) // OUT, (m + 1) % OUT] = 0.0
+    return _ordered_sum(parts).reshape(-1, rows).T[:B, :n]
+
+
+@pytest.mark.parametrize("b", [1, 5, 128])
+@pytest.mark.parametrize("n", [1024, 1300, 300, 9])
+@pytest.mark.parametrize("mode", ["fwd", "bwd"])
+def test_kernel_index_model_matches_matmul(mode, n, b):
+    m = n - 2
+    coef = ratint.pv_coefficients(m, torch.float64, CPU)
+    kmid, knode = (k.numpy() for k in ratint.pv_dense(m, torch.float64, CPU))
+    if mode == "fwd":
+        f = _integrands(b, n, seed=6)
+        got = _model_fwd(f, coef.numpy())
+        mid, node = ratint.pv_tables_matmul(f, kmid, knode)
+        want = np.zeros((b, 2 * m - 1))
+        want[:, 0::2], want[:, 1::2] = mid, node
+    else:
+        g = np.random.default_rng(7).standard_normal((b, 2 * m - 1))
+        got = _model_bwd(g, coef.numpy())
+        want = g[:, 0::2] @ kmid.T + g[:, 1::2] @ knode[:, :-1].T
+    assert got.shape == want.shape
+    assert _rel(got, want) <= 1e-12
 
 
 @pytest.mark.parametrize("delta", [0.0, 0.5], ids=["midpoint", "node"])

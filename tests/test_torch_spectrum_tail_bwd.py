@@ -22,7 +22,14 @@ seeded g [B, L].
   the Pallas kernel's own miss of it.
 
 A, the weights, the angles and the frequency axis get no gradient.
+
+The card path's own logic is rehearsed here too: the wrapper's dispatch to the
+C entry point on CPU tensors, and a numpy model of the CUDA kernel's slab,
+angle-chunk and write-out index rule.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -181,3 +188,121 @@ def test_tail_bwd_kernel_matches_plain_twin_on_card(case):
     floors = {"ud": 1e-3 * scales["Va"], "Ti": 1e-6 * scales["Te"], "fract": 1e-3 * scales["Z"]}
     for name, k, r in zip(NAMES, got, ref):
         assert float((k.double() - r).abs().max()) <= 1e-3 * scales[name] + floors.get(name, 0.0), name
+
+
+def _card_checks_on_cpu(t, name, ndim):
+    """``build.check_input`` without its device test: the wrapper's shape, type and layout checks."""
+    if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: {t.dtype}, {tuple(t.shape)}")
+
+
+@pytest.mark.parametrize("S", range(1, spectrum_tail.MAX_SPECIES + 1))
+def test_bwd_wrapper_dispatch_rehearsed_on_cpu(S, monkeypatch):
+    """The card path of ``spectrum_tail_bwd`` up to its C call, on CPU tensors: the C entry point (which
+    dispatches S to the kernel's instantiation) gets the operands, g, the ten outputs and the float64
+    sums in ``_BWD_ARGTYPES``'s order, then (B, G, L, NA, S); the outputs have ``GRAD_NAMES``' shapes."""
+    from tsadar_tpu_torch.ops import build
+
+    B, G, L, NA = 2, 2, 7, 3
+    rng = np.random.default_rng(S)
+    t = lambda *shape: torch.tensor(rng.uniform(0.5, 1.5, shape), dtype=torch.float32)  # noqa: E731
+    args = (t(B, G, L, NA), t(B, G, L, NA), t(B, G), t(B, G), t(B), t(B), t(B), t(B, S), t(B, S), t(B, S), t(B, S),
+            t(NA), t(NA), t(L))
+    g = t(B, L)
+    calls = []
+    monkeypatch.setattr(build, "check_input", _card_checks_on_cpu)
+    monkeypatch.setattr(build, "c_function", lambda lib, fn, argtypes: (lib, fn, argtypes))
+    monkeypatch.setattr(build, "launch", lambda fn, *a, device: calls.append((fn, a, device)))
+    before = spectrum_tail.spectrum_tail_bwd.launches
+    outs = spectrum_tail.spectrum_tail_bwd(g, *args)
+    assert spectrum_tail.spectrum_tail_bwd.launches == before + 1
+    ((lib, name, argtypes), a, device), = calls
+    assert (lib, name, argtypes) == ("spectrum_tail_bwd", "spectrum_tail_bwd", spectrum_tail._BWD_ARGTYPES)
+    assert len(a) + 1 == len(argtypes) and a[-5:] == (B, G, L, NA, S) and device == args[0].device
+    assert a[:2] == (args[0].data_ptr(), args[1].data_ptr()) and a[15] == g.data_ptr()
+    assert a[16:26] == tuple(o.data_ptr() for o in outs)
+    shapes = [(B, G, L, NA)] * 2 + [(B, G)] * 2 + [(B,)] * 3 + [(B, S)] * 3
+    assert [tuple(o.shape) for o in outs] == shapes
+
+
+@pytest.mark.parametrize("S", [0, spectrum_tail.MAX_SPECIES + 1])
+def test_bwd_wrapper_refuses_species_counts_without_a_kernel(S, monkeypatch):
+    from tsadar_tpu_torch.ops import build
+
+    B, G, L, NA = 2, 1, 5, 3
+    z = lambda *shape: torch.ones(shape, dtype=torch.float32)  # noqa: E731
+    monkeypatch.setattr(build, "check_input", _card_checks_on_cpu)
+    monkeypatch.setattr(build, "launch", lambda *a, **k: pytest.fail("launched"))
+    with pytest.raises(ValueError, match="ion species"):
+        spectrum_tail.spectrum_tail_bwd(z(B, L), z(B, G, L, NA), z(B, G, L, NA), z(B, G), z(B, G), z(B), z(B), z(B),
+                                        z(B, S), z(B, S), z(B, S), z(B, S), z(NA), z(NA), z(L))
+
+
+_K6_SOURCE = Path(spectrum_tail.__file__).resolve().parent.parent / "csrc" / "spectrum_tail_bwd.cu"
+
+
+def _k6_constant(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", _K6_SOURCE.read_text()).group(1))
+
+
+def _slab_walk(tid, nc, threads):
+    """The kernel's ``SlabWalk``: (e, row, column) of e = tid, tid + threads, ... stepped without a division."""
+    row, col, drow, dcol = tid // nc, tid % nc, threads // nc, threads % nc
+    e = tid
+    while True:
+        yield e, row, col
+        e, row, col = e + threads, row + drow, col + dcol
+        if col >= nc:
+            row, col = row + 1, col - nc
+
+
+def _k6_neighbour_model(fe, t, g_fe):
+    """g_lf of ``spectrum_tail_bwd.cu`` from its per-point f_e, t and g_fe [L, NA], through the kernel's
+    own index rule: blocks of kOwned wavelengths whose thread 0 is the left halo, the angles in chunks of
+    at most kMaxChunk, each chunk's slab staged [kSlab][nc] by the walk, the owners' slots [kThreads][nc],
+    and the coalesced write-out of g_lf = (g_fe + (t[l-1] - t[l])) f_e.  Counts the writes of each entry."""
+    threads, max_chunk = _k6_constant("kThreads"), _k6_constant("kMaxChunk")
+    owned_max, slab = threads - 1, threads + 1  # kOwned, kSlab
+    L, NA = fe.shape
+    chunks = -(-NA // max_chunk) if NA > max_chunk else 1
+    NC = -(-NA // chunks)
+    out, writes = np.zeros(L * NA), np.zeros(L * NA, dtype=int)
+    for first in range(0, L, owned_max):
+        owned = min(owned_max, L - first)
+        for a0 in range(0, NA, NC):
+            nc = min(NC, NA - a0)
+            fe_s, k_s, t_s = np.full(slab * nc, np.nan), np.full(slab * nc, np.nan), np.full(threads * nc, np.nan)
+            for tid in range(threads):  # staging: fe from [L, NA] at the walk's (row, column), 0 off the ends
+                for e, row, col in _slab_walk(tid, nc, threads):
+                    if e >= slab * nc:
+                        break
+                    li = first - 1 + row
+                    fe_s[e] = fe[li, a0 + col] if 0 <= li < L else 0.0
+            for tid in range(threads):  # the angle loop's slots: t of every thread in range, g_fe of the owners
+                l_raw = first + tid - 1
+                in_range = 0 <= l_raw < L
+                l = min(max(l_raw, 0), L - 1)
+                for a in range(nc):
+                    t_s[tid * nc + a] = t[l, a0 + a] if in_range else 0.0
+                    if in_range and tid > 0:
+                        k_s[tid * nc + a] = g_fe[l, a0 + a]
+            for tid in range(threads):  # write-out
+                for e, row, col in _slab_walk(tid, nc, threads):
+                    if e >= owned * nc:
+                        break
+                    p, d = e + nc, (first + row) * NA + a0 + col
+                    out[d] = (k_s[p] + (t_s[e] - t_s[p])) * fe_s[p]
+                    writes[d] += 1
+    return out.reshape(L, NA), writes.reshape(L, NA)
+
+
+@pytest.mark.parametrize("L, NA", [(1, 1), (50, 10), (127, 12), (128, 13), (255, 25), (300, 70)])
+def test_k6_chunked_slab_index_model(L, NA):
+    """The kernel's slab, chunk and write-out index rule (modelled in numpy from its constants) gives every
+    g_lf entry once, equal to (g_fe + (t[l-1] - t[l])) f_e with t[-1] = 0, for any angle count."""
+    rng = np.random.default_rng(L * 100 + NA)
+    fe, t, g_fe = (rng.standard_normal((L, NA)) for _ in range(3))
+    got, writes = _k6_neighbour_model(fe, t, g_fe)
+    t_prev = np.vstack([np.zeros((1, NA)), t[:-1]])
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_allclose(got, (g_fe + (t_prev - t)) * fe, rtol=0, atol=1e-15)

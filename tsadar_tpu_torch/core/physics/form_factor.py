@@ -207,7 +207,7 @@ def _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, om
 
     fe_vphi = torch.exp(lf)
     df = torch.diff(fe_vphi, dim=2) / torch.diff(xie, dim=2)
-    df = torch.cat([df, torch.zeros_like(df[:, :, :1])], dim=2)
+    df = torch.cat([df, torch.zeros_like(fe_vphi[:, :, :1])], dim=2)  # 0 at the last wavelength (and at L = 1)
     # electron Landau term with the Kramers-Kronig-consistent MINUS sign
     # (the JAX package's documented fix of the reference's +pi)
     ceR = -1.0 / (klde**2) * chiERraw

@@ -20,6 +20,9 @@ from ..core.physics.ratint import pv_dense, pv_tables_matmul
 __all__ = ["PvTables", "pv_tables_fwd", "pv_tables_bwd", "plain", "plain_bwd"]
 
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+# the kernel's tiling (kOut, kRows, kChunk, kSplit in the CUDA source): a block's tile of outputs and
+# lineouts, the contraction indices staged at a time, and the blocks that share them
+TILE_OUT, TILE_ROWS, CHUNK, SPLIT = 128, 32, 128, 8
 
 
 def _check(x, coef, width_of_m, name):
@@ -31,10 +34,16 @@ def _check(x, coef, width_of_m, name):
     return x.shape[0], m
 
 
+def _with_shares(B, width, like):
+    """An output [B, width] whose allocation holds the kernel's SPLIT partial shares [SPLIT, B, width]
+    right after it: the first kernel writes the shares, the second sums them into the output."""
+    return torch.empty((SPLIT + 1, B, width), dtype=like.dtype, device=like.device)[0]
+
+
 def pv_tables_fwd(f, coef):
     """Interleaved pole table [B, 2m - 1] of integrands f [B, m + 2]; coef [2, 4m] from ``ratint.pv_coefficients``."""
     B, m = _check(f, coef, lambda m: m + 2, "f")
-    out = torch.empty((B, 2 * m - 1), dtype=f.dtype, device=f.device)
+    out = _with_shares(B, 2 * m - 1, f)
     fn = build.c_function("pv_tables", "pv_tables_fwd", _ARGTYPES)
     build.launch(fn, f.data_ptr(), coef.data_ptr(), out.data_ptr(), B, m, device=f.device)
     pv_tables_fwd.launches += 1
@@ -47,7 +56,7 @@ pv_tables_fwd.launches = 0
 def pv_tables_bwd(g, coef):
     """Cotangent [B, m + 2] of the integrands from that of the interleaved table g [B, 2m - 1]."""
     B, m = _check(g, coef, lambda m: 2 * m - 1, "g")
-    gf = torch.empty((B, m + 2), dtype=g.dtype, device=g.device)
+    gf = _with_shares(B, m + 2, g)
     fn = build.c_function("pv_tables", "pv_tables_bwd", _ARGTYPES)
     build.launch(fn, g.data_ptr(), coef.data_ptr(), gf.data_ptr(), B, m, device=g.device)
     pv_tables_bwd.launches += 1
