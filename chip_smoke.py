@@ -9,14 +9,16 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
 2. builds every kernel of the port from ``tsadar_tpu_torch/csrc`` (timed as set-up);
 3. holds each kernel against its plain PyTorch twin on the card, at the shapes
    of the whole-shot forward, and times kernel, twin and (where one exists) a
-   single PyTorch library call computing the same function;
+   single PyTorch library call computing the same function; the lookups' table
+   cotangents (K2, K4) also on crowded seeded queries laid out as xi_e;
 4. drives the whole-shot fit from shot 101675's real data, as
    ``bench_whole_shot.py`` does: ``prepare_data`` on the shot (128 lineouts,
    pixels 300:812:4; host seconds and shapes), the 128-lineout forward at the
    deck's start values (K1, K3, K5 and the pole tables K9 once each), K9 in
    both modes and K10 with its backward against their twins on that forward's
    own operands and on seeded ones, K6 against its twin and K5 and K6 timed on
-   that forward's operands, K10's path (``interp1d_linear_pallas`` on
+   that forward's operands, K2 and K4 against their twins and timed on its
+   xi_e, K10's path (``interp1d_linear_pallas`` on
    the real chi_R table and queries, forward and backward, against K1/K2),
    loss and gradient of 4 real lineouts against the CPU float64 plain path,
    and FIT_STEPS adam steps at lr 2e-2 (K1-K6 and both K9 modes once per
@@ -89,8 +91,10 @@ TAIL_EPW_TOL = 1e-3
 TAIL_IAW_RATIO = 2.0
 TAIL_IAW_FLOOR = 1e-6
 # table cotangents of the lookups vs their float32 plain twins (scatter_add_),
-# of max |cotangent|: both sum ~25 (K2) or ~160 (K4) float32 terms per entry in
-# an order of their own
+# of max |cotangent|: both sum float32 terms per entry in an order of their own,
+# ~50 (K2) or ~640 (K4) on uniform queries, and up to ~1.0e4 (K2) and ~1.4e4
+# (K4) at the end entries of the real-data queries and ~1.8e4 on the crowded
+# seeded ones (each case reports its count: max_deposits)
 LOOKUP_BWD_TOL = 1e-5
 # K10's table cotangent against its twin in float64: any float32 form resolves the weight w = pos - i0
 # only to half an ulp of pos (~6e-5 at n = 2043), and each entry sums ~25 such deposits, so it is held
@@ -275,9 +279,88 @@ def check_kernel(name, got, want, scale, rel_tol=LOOKUP_TOL):
     return err
 
 
+def crowded_queries(rng, x0, xend, B, Q, angles=10):
+    """[B, Q] queries laid out [L, angles] as the form factor's xi_e: per angle a monotone ramp over three
+    times the grid's span around its centre (a third of each row below the grid, a third above), slope and
+    offset drawn per (row, angle), so that neighbouring queries share cells and the clamped ones crowd the
+    two end cells."""
+    L = -(-Q // angles)
+    span = xend - x0
+    ramp = np.linspace(-1.5, 1.5, L)[None, :, None]
+    q = 0.5 * (x0 + xend) + span * (ramp * rng.uniform(0.9, 1.1, (B, 1, angles)) + rng.uniform(-0.05, 0.05, (B, 1, angles)))
+    return q.reshape(B, -1)[:, :Q]
+
+
+def lookup_deposits(kind, q, g, grid, n):
+    """Every deposit of K2 (kind "lin", grid (x0, dx)) or K4 ("cubic", grid = meta [B, 3]) as one index and one
+    value tensor [B, taps x Q], and the most deposits any entry takes.  K4's taps outside the table (weight
+    exactly 0) go onto the nearest entry and are not counted."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.interp import _cubic_weights, cubic_cell, lin_cell
+
+    if kind == "lin":
+        _, i0, w = lin_cell(q, *grid, n)
+        taps, vals = [i0, i0 + 1], [g * (1.0 - w), g * w]
+    else:
+        i0, t, first, last = cubic_cell(q, grid)
+        taps, vals = [i0 + k - 1 for k in range(4)], [g * c for c in _cubic_weights(t, first, last)]
+    idx = torch.cat([tap.clamp(0, n - 1) for tap in taps], 1)
+    inside = torch.cat([((tap >= 0) & (tap < n)).float() for tap in taps], 1)
+    counts = torch.zeros((q.shape[0], n), dtype=torch.float32, device=q.device).scatter_add_(-1, idx, inside)
+    return idx, torch.cat(vals, 1), int(counts.max())
+
+
+def lookup_bwd_case(kind, q, g, grid, n):
+    """K2 or K4 (``lookup_deposits``' kinds) on (q, g): the kernel against its float32 twin, held to
+    LOOKUP_BWD_TOL of max |cotangent| (its and the twin's miss of the float64 twin reported beside); the
+    kernel's time and that of one scatter_add_ of all its deposits (indices and values built untimed), the
+    most deposits an entry takes.  Returns (report, ok)."""
+    import torch
+
+    from tsadar_tpu_torch.ops import cubic_lookup, lin_lookup
+
+    if kind == "lin":
+        grid = tuple(float(np.float32(v)) for v in grid)  # the grid the kernel sees, for the float64 twin too
+        kern = lambda: lin_lookup.lin_lookup_bwd(q, g, *grid, n)  # noqa: E731
+        want, f64 = lin_lookup.plain_bwd(q, g, *grid, n), lin_lookup.plain_bwd(q.double(), g.double(), *grid, n)
+    else:
+        kern = lambda: cubic_lookup.cubic_lookup_bwd(q, g, grid, n)  # noqa: E731
+        want, f64 = cubic_lookup.plain_bwd(q, g, grid, n), cubic_lookup.plain_bwd(q.double(), g.double(), grid.double(), n)
+    got = kern()
+    scale, f64_scale = float(want.abs().max()), float(f64.abs().max())
+    idx, vals, most = lookup_deposits(kind, q, g, grid, n)
+    lib = lambda: torch.zeros((q.shape[0], n), dtype=torch.float32, device=q.device).scatter_add_(-1, idx, vals)  # noqa: E731
+    err = float((got - want).abs().max())
+    report = {"max_abs_err": err, "scale": scale, "vs_f32_twin_of_max": err / scale,
+              "vs_f64_twin_of_max": float((got.double() - f64).abs().max()) / f64_scale,
+              "f32_twin_vs_f64_twin_of_max": float((want.double() - f64).abs().max()) / f64_scale,
+              "library_vs_f32_twin_of_max": float((lib() - want).abs().max()) / scale,
+              "max_deposits": most, "zero_g_share": float((g == 0).double().mean()),
+              "ms": device_times_ms(kern), "library_ms": device_times_ms(lib)}
+    return report, bool(torch.isfinite(got).all()) and err <= LOOKUP_BWD_TOL * scale
+
+
+def check_lookup_bwd(name, kind, seeded, crowded, grid, n, plain, bound):
+    """K2 or K4 on seeded and on crowded (q, g) pairs (``lookup_bwd_case``); fails on a disagreement.
+    Returns the kernel's row: the seeded case's error and times (``plain`` the twin on it), the crowded ones."""
+    cases = {label: lookup_bwd_case(kind, q, g, grid, n) for label, (q, g) in (("seeded", seeded), ("crowded", crowded))}
+    ok = all(case_ok for _, case_ok in cases.values())
+    report = {label: case for label, (case, _) in cases.items()}
+    emit({"phase": "kernel_check", "kernel": name, "tol": LOOKUP_BWD_TOL, "cases": report, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"{name} disagrees with its plain twin: {report}")
+    one, many = report["seeded"], report["crowded"]
+    return dict(max_abs_err=one["max_abs_err"], ms=one["ms"], plain_ms=device_times_ms(plain), bound_ms=bound[0],
+                bound_by=bound[1], library_ms=one["library_ms"], crowded_ms=many["ms"], crowded_library_ms=many["library_ms"],
+                crowded_max_deposits=many["max_deposits"])
+
+
 def check_lookups(rng):
     """K1-K4 at the whole-shot shapes, on seeded tables, queries that include
-    both edge cells and queries beyond both ends, and a seeded cotangent."""
+    both edge cells and queries beyond both ends, and a seeded cotangent; K2 and
+    K4 also on crowded seeded queries (``crowded_queries``, K4's g zeroed beyond
+    its grid as the forward's overwrite leaves it)."""
     import torch
     import torch.nn.functional as F
 
@@ -286,6 +369,7 @@ def check_lookups(rng):
     dev = torch.device("cuda")
     B, Q = N_LINEOUTS, 5120 * 10
     rows = {}
+    crowd_rng = np.random.default_rng(SEED + 2)  # its own draws: every other seeded operand stays as it was
 
     # K1: the 2043-entry chi_R pole table on its xi grid
     n, x0, dx = 2043, -8.2, 16.4 / 2042
@@ -308,19 +392,12 @@ def check_lookups(rng):
         max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=device_times_ms(lib),
     )
-    # K2: the table cotangent of K1; yardstick: one scatter_add_ (the i0 deposits alone, indices given)
+    # K2: the table cotangent of K1; yardstick: one scatter_add_ of both deposits of every query
     gt = torch.tensor(rng.standard_normal((B, Q)), dtype=torch.float32, device=dev)
-    kern = lambda: lin_lookup.lin_lookup_bwd(qt, gt, x0, dx, n)  # noqa: E731
-    plain = lambda: lin_lookup.plain_bwd(qt, gt, x0, dx, n)  # noqa: E731
-    want = plain()
-    err = check_kernel("lin_lookup_bwd", [kern()], [want], float(want.abs().max()), LOOKUP_BWD_TOL)
-    idx = torch.clamp(torch.floor(torch.clamp((qt - x0) / dx, 0.0, n - 1.0)), max=n - 2.0).long()
-    lib = lambda: torch.zeros((B, n), dtype=torch.float32, device=dev).scatter_add_(-1, idx, gt)  # noqa: E731
-    b_ms, b_by = bound_ms(8 * B * Q + 4 * B * n, 8 * B * Q)
-    rows["lin_lookup_bwd"] = dict(
-        max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_times_ms(lib),
-    )
+    qc = torch.tensor(crowded_queries(crowd_rng, x0, x0 + (n - 1) * dx, B, Q), dtype=torch.float32, device=dev)
+    rows["lin_lookup_bwd"] = check_lookup_bwd(
+        "lin_lookup_bwd", "lin", (qt, gt), (qc, gt), (x0, dx), n, lambda: lin_lookup.plain_bwd(qt, gt, x0, dx, n),
+        bound_ms(8 * B * Q + 4 * B * n, 8 * B * Q))
 
     # K3: the 320-point log-EDF table on the DLM velocity grid, per-row meta
     n = 320
@@ -342,20 +419,33 @@ def check_lookups(rng):
         max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
         library_ms=None,
     )
-    # K4: the table cotangent of K3; yardstick: one scatter_add_ (one of the four taps, indices given)
+    # K4: the table cotangent of K3; yardstick: one scatter_add_ of all four taps of every query
     gt = torch.tensor(rng.standard_normal((B, Q)), dtype=torch.float32, device=dev)
-    kern = lambda: cubic_lookup.cubic_lookup_bwd(qt, gt, meta, n)  # noqa: E731
-    plain = lambda: cubic_lookup.plain_bwd(qt, gt, meta, n)  # noqa: E731
-    want = plain()
-    err = check_kernel("cubic_lookup_bwd", [kern()], [want], float(want.abs().max()), LOOKUP_BWD_TOL)
-    idx = torch.clamp(torch.floor((qt - x0) / dv), 0.0, n - 2.0).long()
-    lib = lambda: torch.zeros((B, n), dtype=torch.float32, device=dev).scatter_add_(-1, idx, gt)  # noqa: E731
-    b_ms, b_by = bound_ms(8 * B * Q + 12 * B + 4 * B * n, 40 * B * Q)
-    rows["cubic_lookup_bwd"] = dict(
-        max_abs_err=err, ms=device_times_ms(kern), plain_ms=device_times_ms(plain), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_times_ms(lib),
-    )
+    qc = torch.tensor(crowded_queries(crowd_rng, x0, vx[-1], B, Q), dtype=torch.float32, device=dev)
+    gc = torch.where((qc < x0) | (qc > vx[-1]), 0.0, gt).contiguous()
+    rows["cubic_lookup_bwd"] = check_lookup_bwd(
+        "cubic_lookup_bwd", "cubic", (qt, gt), (qc, gc), meta, n, lambda: cubic_lookup.plain_bwd(qt, gt, meta, n),
+        bound_ms(8 * B * Q + 12 * B + 4 * B * n, 40 * B * Q))
     return rows
+
+
+def check_lookups_real(q, poles, table_n, meta, nv):
+    """K2 and K4 on the real-data forward's own queries xi_e [B, 51 200]: K2 on the chi_R pole grid, K4 on
+    the log-EDF grid (``meta``, nv entries) with g zeroed where the forward overwrites the lookup (beyond
+    the velocity grid); g seeded by a generator of its own.  Returns {kernel: {real_data_ms, ...}}."""
+    import torch
+
+    g = torch.tensor(np.random.default_rng(SEED + 3).standard_normal(q.shape), dtype=torch.float32, device=q.device)
+    vx0, vdx = float(meta[0, 0]), float(meta[0, 1])
+    g4 = torch.where((q < vx0) | (q > vx0 + vdx * (nv - 1)), 0.0, g).contiguous()
+    lin, ok_lin = lookup_bwd_case("lin", q, g, (float(poles[0]), float(poles[1] - poles[0])), table_n)
+    cubic, ok_cubic = lookup_bwd_case("cubic", q, g4, meta, nv)
+    emit({"phase": "kernel_check", "kernel": "lin_lookup_bwd+cubic_lookup_bwd", "case": "real_data_xie", "queries": list(q.shape),
+          "tol": LOOKUP_BWD_TOL, "cases": {"lin_lookup_bwd": lin, "cubic_lookup_bwd": cubic}, "ok": ok_lin and ok_cubic})
+    if not (ok_lin and ok_cubic):
+        raise RuntimeError(f"K2/K4 on the real-data queries disagree with their plain twins: {lin}, {cubic}")
+    return {k: {"real_data_ms": r["ms"], "real_data_library_ms": r["library_ms"], "real_data_max_deposits": r["max_deposits"],
+                "real_data_max_abs_err": r["max_abs_err"]} for k, r in (("lin_lookup_bwd", lin), ("cubic_lookup_bwd", cubic))}
 
 
 def check_tail(diag, params):
@@ -550,8 +640,8 @@ def profile_run(run, units, unit_ms, phase, unit, top=10):
     """Device time per unit of work (a forward, a fit step) from torch.profiler
     over ``run()``, which does ``units`` of them: the sum over device kernels,
     the device's busy share of the measured wall time ``unit_ms``, the top
-    kernels, and the top PyTorch ops by the device time of the kernels they
-    launched (the port's own kernels have no op)."""
+    kernels, every kernel of the port, and the top PyTorch ops by the device
+    time of the kernels they launched (the port's own kernels have no op)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -568,6 +658,7 @@ def profile_run(run, units, unit_ms, phase, unit, top=10):
         return sorted(rows, key=lambda r: -r[1])
 
     kernels, ops = ranked(True), ranked(False)
+    port = [r for r in kernels if any(k in r[0] for k in PORT_KERNEL_NAMES)]
     device_ms = sum(r[1] for r in kernels)
     # uploads belong to a run's set-up (a fit's data, a model's tables), not to its steady state
     upload_ms = sum(r[1] for r in kernels if r[0].startswith("Memcpy HtoD"))
@@ -575,7 +666,7 @@ def profile_run(run, units, unit_ms, phase, unit, top=10):
     return {"phase": phase, f"device_ms_per_{unit}": device_ms, f"{unit}_ms": unit_ms,
             "device_busy_share": device_ms / unit_ms, f"kernel_launches_per_{unit}": sum(r[2] for r in kernels),
             f"host_to_device_copy_ms_per_{unit}": upload_ms,
-            "top_kernels": as_json(kernels), "top_ops": as_json(ops)}
+            "top_kernels": as_json(kernels), "port_kernels": as_json(port), "top_ops": as_json(ops)}
 
 
 def fit_config(cfg, n, steps):
@@ -1096,13 +1187,13 @@ def real_data_prepare():
 
 
 def real_operands(loss_fn, params):
-    """The real-data forward's operands of K9 and K10: (PV integrand [B, 1024], chi_R table [B, 2043],
-    its pole grid [2043], the queries xi_e [B, 51 200])."""
+    """The real-data forward's lookup operands: (PV integrand [B, 1024], chi_R table [B, 2043], its pole grid
+    [2043], the queries xi_e [B, 51 200], the log-EDF grid meta [B, 3], the log-EDF's length nv)."""
     ff = loss_fn.ts_diag.model.electron_form_factor
     physical = params()
-    xie, log_fe, _, table, _ = ff._lookup_inputs_1v(physical)
+    xie, log_fe, meta, table, _ = ff._lookup_inputs_1v(physical)
     ratdf = ff._pv_integrand(log_fe, physical["electron"]["v"])
-    return ratdf, table, ff.pv_poles, xie.reshape(xie.shape[0], -1).contiguous()
+    return ratdf, table, ff.pv_poles, xie.reshape(xie.shape[0], -1).contiguous(), meta, log_fe.shape[1]
 
 
 def pv_case(label, f, g, coef):
@@ -1236,18 +1327,22 @@ def check_lin_lookup_meta(rng, table, poles, q):
     grid = torch.zeros((B, 1, Q, 2), dtype=torch.float32, device=dev)
     grid[..., 0] = ((q - x0) / (dx * (n - 1)) * 2.0 - 1.0)[:, None, :]
     img = table[:, None, None, :].contiguous()
-    idx = torch.clamp(torch.floor(torch.clamp((q - x0) / dx, 0.0, n - 1.0)), max=n - 2.0).long()
+    # the backward's yardstick: one scatter_add_ of both deposits of every query (built untimed)
+    idx, vals, most = lookup_deposits("lin", q, g, (meta[0], meta[1]), n)
     fwd_ms, fwd_by = bound_ms(4 * B * Q + 4 * B * npad + 12 + 8 * B * Q, 10 * B * Q)
     bwd_ms, bwd_by = bound_ms(8 * B * Q + 12 + 4 * B * npad, 8 * B * Q)
+    bwd_kernel_ms = device_times_ms(lambda: lin_lookup.lin_lookup_meta_bwd(q, g, meta, npad))
+    bwd_library_ms = device_times_ms(lambda: torch.zeros((B, npad), dtype=torch.float32, device=dev).scatter_add_(-1, idx, vals))
     return {
         "lin_lookup_meta_fwd": dict(
             max_abs_err=worst[0], ms=device_times_ms(lambda: lin_lookup.lin_lookup_meta_fwd(q, tpad, meta)),
             plain_ms=device_times_ms(lambda: lin_lookup.plain_meta(q, tpad, meta)), bound_ms=fwd_ms, bound_by=fwd_by,
             library_ms=device_times_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="border", align_corners=True))),
+        # timed on the real-data queries, as its forward: real_data_ms repeats ms
         "lin_lookup_meta_bwd": dict(
-            max_abs_err=worst[1], ms=device_times_ms(lambda: lin_lookup.lin_lookup_meta_bwd(q, g, meta, npad)),
+            max_abs_err=worst[1], ms=bwd_kernel_ms,
             plain_ms=device_times_ms(lambda: lin_lookup.plain_meta_bwd(q, g, meta, npad)), bound_ms=bwd_ms, bound_by=bwd_by,
-            library_ms=device_times_ms(lambda: torch.zeros((B, npad), dtype=torch.float32, device=dev).scatter_add_(-1, idx, g))),
+            library_ms=bwd_library_ms, real_data_ms=bwd_kernel_ms, real_data_library_ms=bwd_library_ms, real_data_max_deposits=most),
     }
 
 
@@ -1400,6 +1495,8 @@ KERNELS = {
     "lin_lookup_meta_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel.py:84", "K10"),
     "lin_lookup_meta_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/core/physics/interp.py:1227", "K10, table cotangent"),
 }
+# the port's device functions by name (csrc/*.cu), as the profiler lists them
+PORT_KERNEL_NAMES = ("lin_lookup", "cubic_lookup", "spectrum_tail", "pv_tables", "sum_shares", "chi_bilinear")
 FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd", "pv_tables_fwd")
 ARTS_KERNELS = ("chi_bilinear_fwd", "chi_bilinear_bwd")
 PADDED_KERNELS = ("lin_lookup_meta_fwd", "lin_lookup_meta_bwd")
@@ -1484,9 +1581,10 @@ def main():
     real_cfg, real_sa, real_all = real_data_prepare()
     real_loss_fn, real_fit_batch, real_params, real_fwd_launches = real_data_forward(real_cfg, real_sa, real_all, wrappers, smi)
     with torch.no_grad():
-        ratdf, chi_table, chi_poles, xie = real_operands(real_loss_fn, real_params)
+        ratdf, chi_table, chi_poles, xie, lfe_meta, nv = real_operands(real_loss_fn, real_params)
         rows |= check_pv_tables(rng, ratdf)
-        for k, extra in check_tail_real(real_loss_fn.ts_diag, real_params, rng).items():
+        for k, extra in (check_tail_real(real_loss_fn.ts_diag, real_params, rng)
+                         | check_lookups_real(xie, chi_poles, chi_table.shape[1], lfe_meta, nv)).items():
             rows[k] |= extra
         rows |= check_lin_lookup_meta(rng, chi_table, chi_poles, xie)
     padded_launches = real_data_lookup_padded(chi_table, chi_poles, xie, wrappers)

@@ -28,12 +28,22 @@
 // contraction and segment fold become one f32 scatter-add into [B, n].
 // Bound: q and g in (8 B per query), 1.3 KB per row out: main path ~52 MB,
 // ~16 us.  Design: one block per (row, slab of kSlab queries), an n-float
-// accumulator in shared memory fed by shared-memory atomicAdd, then global
-// atomicAdd of its non-zero entries into the zeroed output.  With 320 cells
-// for 51 200 queries the shared atomics contend heavily; the order of the
-// atomics is not fixed, so the last bits may differ from run to run.
+// accumulator in shared memory for each warp (10 KB at n = 320), summed in a
+// fixed order and added to the zeroed output with global atomicAdd where
+// non-zero.  Real queries crowd: on shot 101675's fit half of them lie beyond
+// the velocity grid and clamp onto its end cells (an end entry of a row takes
+// ~10^4 deposits), and there the forward overwrites the lookup, so their
+// cotangent g is exactly 0; inside the grid the angle-interleaved queries put
+// lanes 10 apart into one cell.  So each thread loads kUnroll queries before
+// it deposits any, the four taps go through warp_deposit.cuh (runs of
+// neighbouring lanes in one cell summed in registers and added once, exact
+// zeros not added), and the per-warp accumulators leave only a warp's own
+// lanes to contend for an address.  The order of the atomics is not fixed,
+// so the last bits may differ from run to run.
 
 #include <cuda_runtime.h>
+
+#include "warp_deposit.cuh"
 
 namespace {
 
@@ -104,14 +114,20 @@ __global__ void cubic_lookup_kernel(const float* __restrict__ q, const float* __
   }
 }
 
-constexpr int kSlab = kThreads * 32;
+constexpr int kUnroll = 4;
+constexpr int kSlab = kThreads * kUnroll * 2;
+constexpr int kCopies = kThreads / 32;  // one accumulator per warp
 
+// Each warp deposits into its own n-float accumulator; the block sums the kCopies in a fixed
+// order before its global add.  The loop is uniform over the block, so every lane of a warp
+// reaches warp_deposit together.
 __global__ void cubic_lookup_bwd_kernel(const float* __restrict__ q, const float* __restrict__ g,
                                         const float* __restrict__ meta, float* __restrict__ dtable, int Q, int n) {
   extern __shared__ float acc[];
   const int b = blockIdx.y;
-  for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) acc[i] = 0.0f;
+  for (int i = static_cast<int>(threadIdx.x); i < kCopies * n; i += kThreads) acc[i] = 0.0f;
   __syncthreads();
+  float* warp_acc = acc + (threadIdx.x / 32) * n;
 
   const float x0 = meta[3 * b + 0];
   const float dx = meta[3 * b + 1];
@@ -119,36 +135,44 @@ __global__ void cubic_lookup_bwd_kernel(const float* __restrict__ q, const float
   const size_t base = static_cast<size_t>(b) * Q;
   const int slab0 = static_cast<int>(blockIdx.x) * kSlab;
   const int end = min(Q, slab0 + kSlab);
-  for (int j = slab0 + static_cast<int>(threadIdx.x); j < end; j += kThreads) {
-    const float pos = (q[base + j] - x0) / dx;
-    const float i0f = fminf(fmaxf(floorf(pos), 0.0f), last);
-    const float t = pos - i0f;
-    const int i0 = static_cast<int>(i0f);
-    const float t2 = t * t;
-    const float t3 = t2 * t;
-    const Weights c = stencil(2.0f * t3 - 3.0f * t2 + 1.0f, t3 - 2.0f * t2 + t, -2.0f * t3 + 3.0f * t2,
-                              t3 - t2, i0f == 0.0f, i0f == last);
-    const float gj = g[base + j];
-    if (i0 >= 1) atomicAdd(&acc[i0 - 1], gj * c.m1);
-    atomicAdd(&acc[i0], gj * c.c0);
-    atomicAdd(&acc[i0 + 1], gj * c.p1);
-    if (i0 + 2 < n) atomicAdd(&acc[i0 + 2], gj * c.p2);
+  for (int c = slab0; c < end; c += kThreads * kUnroll) {
+    float qv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = c + u * kThreads + static_cast<int>(threadIdx.x);
+      qv[u] = j < end ? q[base + j] : x0;
+      gv[u] = j < end ? g[base + j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const float pos = (qv[u] - x0) / dx;
+      const float i0f = fminf(fmaxf(floorf(pos), 0.0f), last);
+      const float t = pos - i0f;
+      const float t2 = t * t;
+      const float t3 = t2 * t;
+      const Weights w = stencil(2.0f * t3 - 3.0f * t2 + 1.0f, t3 - 2.0f * t2 + t, -2.0f * t3 + 3.0f * t2,
+                                t3 - t2, i0f == 0.0f, i0f == last);
+      float v[4] = {gv[u] * w.m1, gv[u] * w.c0, gv[u] * w.p1, gv[u] * w.p2};
+      const int key = c + u * kThreads + static_cast<int>(threadIdx.x) < end ? static_cast<int>(i0f) : -1;
+      warp_deposit<4, -1>(warp_acc, n, key, v);
+    }
   }
   __syncthreads();
 
   float* row = dtable + static_cast<size_t>(b) * n;
   for (int i = static_cast<int>(threadIdx.x); i < n; i += kThreads) {
-    const float v = acc[i];
+    float v = 0.0f;
+    for (int w = 0; w < kCopies; ++w) v += acc[w * n + i];
     if (v != 0.0f) atomicAdd(&row[i], v);
   }
 }
 
 }  // namespace
 
-// dtable [B, n] must arrive zeroed.
+// dtable [B, n] must arrive zeroed; n <= 7264 (the kCopies accumulators then fill 227 KB of shared memory).
 extern "C" int cubic_lookup_bwd(const void* q, const void* g, const void* meta, void* dtable, int B, int Q, int n,
                                 void* stream) {
-  const size_t smem = static_cast<size_t>(n) * sizeof(float);
+  const size_t smem = static_cast<size_t>(kCopies) * n * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(cubic_lookup_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));

@@ -29,11 +29,16 @@
 //
 // Its bound is memory too: q and g in (8 B per query), the table out (8 KB
 // per row): main path ~53 MB, ~16 us.  Design: one block per (row, slab of
-// kSlab queries) keeps an n-float accumulator in shared memory, fed by
-// shared-memory atomicAdd, and then adds its non-zero entries to the zeroed
-// output with global atomicAdd.  Neighbouring queries fall into the same
-// cell, so the shared atomics contend; the order of both kinds of atomics is
-// not fixed, so the last bits of the sums may differ from run to run.
+// kSlab queries) keeps an n-float accumulator in shared memory and then adds
+// its non-zero entries to the zeroed output with global atomicAdd.  Real
+// queries crowd: on shot 101675's fit a third of them lie beyond the pole
+// grid and clamp onto its two end cells (w exactly 0 or 1 there, so one of
+// their two deposits is an exact zero), and an end entry of a row takes ~10^4
+// deposits.  So each thread loads kUnroll queries before it deposits any (more
+// loads in flight), and the deposits go through warp_deposit.cuh: runs of
+// neighbouring lanes in one cell are summed in registers and added once, and
+// exact zeros are not added.  The order of the atomics is not fixed, so the
+// last bits of the sums may differ from run to run.
 //
 // K10 (lin_lookup_meta_fwd) replaces tsadar_tpu/ops/interp_kernel.py::lin_interp_pallas,
 // the JAX package's wrapper interp.interp1d_linear_pallas: K1's function on tables
@@ -48,11 +53,14 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_deposit.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = kThreads * 8;
-constexpr int kSlab = kThreads * 32;
+constexpr int kUnroll = 4;
+constexpr int kSlab = kThreads * kUnroll * 8;
 
 // The cell of a query on the grid x0 + dx i, i < n: pos clipped to [0, n-1],
 // i0 = min(floor(pos), n-2), w = pos - i0, with true division.
@@ -84,7 +92,8 @@ __device__ __forceinline__ void lookup_tile(const float* __restrict__ q, const f
 }
 
 // One block's slab of queries of row b: deposit into a shared accumulator of `width`
-// entries, then add its non-zero entries to the zeroed output row.
+// entries, then add its non-zero entries to the zeroed output row.  The loop is uniform
+// over the block, so every lane of a warp reaches warp_deposit together.
 __device__ __forceinline__ void deposit_slab(const float* __restrict__ q, const float* __restrict__ g,
                                              float* __restrict__ out_row, float* acc, int Q, int n, int width,
                                              float x0, float dx) {
@@ -94,12 +103,21 @@ __device__ __forceinline__ void deposit_slab(const float* __restrict__ q, const 
   const size_t base = static_cast<size_t>(blockIdx.y) * Q;
   const int slab0 = static_cast<int>(blockIdx.x) * kSlab;
   const int end = min(Q, slab0 + kSlab);
-  for (int j = slab0 + static_cast<int>(threadIdx.x); j < end; j += kThreads) {
-    float w;
-    const int i0 = lin_cell(q[base + j], x0, dx, n, &w);
-    const float gj = g[base + j];
-    atomicAdd(&acc[i0], gj * (1.0f - w));
-    atomicAdd(&acc[i0 + 1], gj * w);
+  for (int c = slab0; c < end; c += kThreads * kUnroll) {
+    float qv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int j = c + u * kThreads + static_cast<int>(threadIdx.x);
+      qv[u] = j < end ? q[base + j] : x0;
+      gv[u] = j < end ? g[base + j] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float w;
+      const int i0 = lin_cell(qv[u], x0, dx, n, &w);
+      float v[2] = {gv[u] * (1.0f - w), gv[u] * w};
+      warp_deposit<2, 0>(acc, width, c + u * kThreads + static_cast<int>(threadIdx.x) < end ? i0 : -1, v);
+    }
   }
   __syncthreads();
 
