@@ -10,13 +10,15 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
 3. holds each kernel against its plain PyTorch twin on the card, at the shapes
    of the whole-shot forward, and times kernel, twin and (where one exists) a
    single PyTorch library call computing the same function; the lookups' table
-   cotangents (K2, K4) also on crowded seeded queries laid out as xi_e;
+   cotangents (K2, K4) also on crowded seeded queries laid out as xi_e; the
+   tail (K5, K6) also on a two-species case, on that case at 70 angles and on
+   the main operands cut to 1, 50 and 255 wavelengths;
 4. drives the whole-shot fit from shot 101675's real data, as
    ``bench_whole_shot.py`` does: ``prepare_data`` on the shot (128 lineouts,
    pixels 300:812:4; host seconds and shapes), the 128-lineout forward at the
    deck's start values (K1, K3, K5 and the pole tables K9 once each), K9 in
    both modes and K10 with its backward against their twins on that forward's
-   own operands and on seeded ones, K6 against its twin and K5 and K6 timed on
+   own operands and on seeded ones, K5 and K6 against their twins and timed on
    that forward's operands, K2 and K4 against their twins and timed on its
    xi_e, K10's path (``interp1d_linear_pallas`` on
    the real chi_R table and queries, forward and backward, against K1/K2),
@@ -44,7 +46,8 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    1024 wavelengths x 241 fine angles, a 128 x 128 arbitrary 2D EDF, 256-row
    angle tables, one image): holds the fused chi-table lookup and its cotangent
    (K7, K8) against their plain twins on seeded queries, on an edge set and on
-   the deck's own queries; runs the forward through
+   the deck's own queries (K8 timed on both query sets beside one
+   ``scatter_add_`` of all its 12 deposits a query); runs the forward through
    ``ThomsonScatteringDiagnostic`` (K7 exactly once) and compares it with the
    CPU float64 plain path; compares loss and gradient with respect to the EDF
    (K7 and K8 once each) with that path; fits the image with ``angular_optax``
@@ -131,8 +134,12 @@ FIT_TOL = {"Te": 0.10, "ne": 0.05, "m": 0.15}  # median relative error of the re
 # jumps from cell to cell; the queries that differ are counted and reported)
 CHI_TOL = 1e-5
 # its cotangent (K8): dT and dbeta at most CHI_BWD_TOL of their own largest |entry|, against both
-# twins.  dT sums Q / (R nvx) ~ 7.5 float32 deposits per cell on uniform queries and thousands at
-# the peak cell of the deck's own, by atomics in an order that changes from run to run
+# twins.  dT sums float32 deposits by atomics in an order that changes from run to run (runs of a
+# warp's lanes summed first): Q / (R nvx) ~ 7.5 a cell on average, and at the busiest entry 331 on
+# the seeded queries (those past a grid's end clamp onto its end column) and 5 791 on the deck's
+# own (chi_bilinear_bwd_deposits reports both as max_deposits); measured 4e-7 / 8e-7 of max against
+# the float32 twin and 1.7e-5 / 1.4e-5 against float64 (the first design, one atomic a deposit, 1.7e-5
+# on the seeded set too)
 CHI_BWD_TOL = 1e-4
 ARTS_NEGATIVE_TOL = 1e-4  # the ARTS image may dip below zero by this share of its peak (NUDFT ringing in the far tail)
 # the ARTS 1V deck's resonance is so narrow that float32 misses the float64 image at its peak pixel,
@@ -213,6 +220,24 @@ def sass_instructions(name):
         elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[fn] += 1
     return counts
+
+
+def ptxas_usage(log, function):
+    """Registers, stack and spills of the first kernel in an nvcc ``-Xptxas -v`` log whose mangled name
+    contains ``function``; None if there is none."""
+    fn, usage = None, {}
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            fn = head.group(1) if function in head.group(1) else None
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if fn and frame:
+            usage.update(stack_bytes=int(frame.group(1)), spill_store_bytes=int(frame.group(2)), spill_load_bytes=int(frame.group(3)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if fn and regs:
+            return {"function": fn, "registers": int(regs.group(1)), **usage}
+    return None
 
 
 def max_err(got, want):
@@ -448,44 +473,79 @@ def check_lookups_real(q, poles, table_n, meta, nv):
                 "real_data_max_abs_err": r["max_abs_err"]} for k, r in (("lin_lookup_bwd", lin), ("cubic_lookup_bwd", cubic))}
 
 
-def check_tail(diag, params):
-    """K5 on the forward's own lookup outputs [128, 1, 5120, 10]."""
+def tail_fwd_misses(label, args, band, report):
+    """K5 against its twin in float64 on ``args``, split at the iawfilter ``band`` (blue, red) [nm]: outside
+    it at most TAIL_EPW_TOL of each lineout's own peak there, inside it at most TAIL_IAW_RATIO times the
+    float32 twin's own miss plus TAIL_IAW_FLOOR of the peak.  Fills ``report[label]`` and returns (ok,
+    max |kernel - float32 twin|)."""
     import torch
 
     from tsadar_tpu_torch.core.physics.constants import C
     from tsadar_tpu_torch.ops import spectrum_tail
 
+    got, want = spectrum_tail.spectrum_tail_fwd(*args), spectrum_tail.plain(*args)
+    ref = spectrum_tail.plain(*(a.double() for a in args))
+    peak = float(ref.abs().max())
+    lam = 2.0 * math.pi * C / args[13].double() * 1e7
+    iaw = (lam > band[0]) & (lam < band[1])
+    epw_peak = ref[:, ~iaw].abs().amax(1) if bool((~iaw).any()) else ref.new_ones(1)
+    miss_epw = lambda x: float(((x.double() - ref)[:, ~iaw].abs().amax(1) / epw_peak).max()) if bool((~iaw).any()) else 0.0  # noqa: E731
+    miss_iaw = lambda x: float((x.double() - ref)[:, iaw].abs().max()) if bool(iaw.any()) else 0.0  # noqa: E731
+    epw_kernel, iaw_kernel, iaw_plain = miss_epw(got), miss_iaw(got), miss_iaw(want)
+    iaw_tol = TAIL_IAW_RATIO * iaw_plain + TAIL_IAW_FLOOR * peak
+    entry = {"operands": list(args[0].shape), "species": args[7].shape[-1], "peak": peak,
+             "wavelengths_in_iaw_band": int(iaw.sum()), "epw_row_peak_range": [float(epw_peak.min()), float(epw_peak.max())],
+             "epw_kernel_vs_f64_of_row_peak": epw_kernel, "epw_plain_f32_vs_f64_of_row_peak": miss_epw(want),
+             "epw_tol": TAIL_EPW_TOL, "iaw_kernel_vs_f64": iaw_kernel, "iaw_plain_f32_vs_f64": iaw_plain, "iaw_tol": iaw_tol}
+    entry["ok"] = bool(torch.isfinite(got).all()) and epw_kernel <= TAIL_EPW_TOL and iaw_kernel <= iaw_tol
+    report[label] = entry
+    return entry["ok"], float((got - want).abs().max())
+
+
+def ragged_tail_cuts(args, noise=None):
+    """(label, tail arguments[, cotangent]) of 2 lineouts of the tail's ``args`` cut to each of TAIL_BWD_RAGGED_L
+    wavelengths around TAIL_BWD_RAGGED_NM (the kernels' block edges); with ``noise`` [B, L] its cut too."""
+    from tsadar_tpu_torch.core.physics.constants import C
+
+    lam = 2.0 * math.pi * C / args[13].double() * 1e7
+    l_mid = int((lam - TAIL_BWD_RAGGED_NM).abs().argmin())
+    for width in TAIL_BWD_RAGGED_L:
+        cut = slice(l_mid - width // 2, l_mid - width // 2 + width)
+        rows = (args[0][:2, :, cut].contiguous(), args[1][:2, :, cut].contiguous(), *(a[:2] for a in args[2:11]),
+                *args[11:13], args[13][cut].contiguous())
+        yield (f"L{width}", rows) if noise is None else (f"L{width}", rows, noise[:2, cut].contiguous())
+
+
+def check_tail(diag, params):
+    """K5 against its twin in float64 (``tail_fwd_misses``) on the forward's own lookup outputs [128, 1,
+    5120, 10]; on a small case with two gradient points, two species, flow and drift
+    (``two_species_tail_case``), on that case at TAIL_BWD_MANY_ANGLES (angles in several chunks); and on 2
+    lineouts of the main operands cut to TAIL_BWD_RAGGED_L wavelengths (the block edges).  The small cases
+    draw from generators of their own.  Same limits for all."""
+    from tsadar_tpu_torch.ops import spectrum_tail
+
     ff = diag.model.electron_form_factor
     inputs = ff._lookups_1v(params())
     args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
-    kern = lambda: spectrum_tail.spectrum_tail_fwd(*args)  # noqa: E731
-    plain = lambda: spectrum_tail.plain(*args)  # noqa: E731
-    got, want = kern(), plain()
-    ref = spectrum_tail.plain(*(a.double() for a in args))
-    peak = float(ref.abs().max())
-    err = float((got - want).abs().max())
-    blue, red, _ = diag.model._filter_band()
-    lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
-    iaw = (lam > blue) & (lam < red)
-    epw_peak = ref[:, ~iaw].abs().amax(1)
-    miss_epw = lambda x: float(((x.double() - ref)[:, ~iaw].abs().amax(1) / epw_peak).max())  # noqa: E731
-    miss_iaw = lambda x: float((x.double() - ref)[:, iaw].abs().max())  # noqa: E731
-    epw_kernel, epw_plain = miss_epw(got), miss_epw(want)
-    iaw_kernel, iaw_plain = miss_iaw(got), miss_iaw(want)
-    iaw_tol = TAIL_IAW_RATIO * iaw_plain + TAIL_IAW_FLOOR * peak
-    ok = epw_kernel <= TAIL_EPW_TOL and iaw_kernel <= iaw_tol
-    emit({"phase": "kernel_check", "kernel": "spectrum_tail_fwd", "max_abs_err": err, "peak": peak,
-          "iaw_band_nm": [blue, red], "epw_row_peak_range": [float(epw_peak.min()), float(epw_peak.max())],
-          "epw_kernel_vs_f64_of_row_peak": epw_kernel, "epw_plain_f32_vs_f64_of_row_peak": epw_plain,
-          "epw_tol": TAIL_EPW_TOL, "iaw_kernel_vs_f64": iaw_kernel, "iaw_plain_f32_vs_f64": iaw_plain,
-          "iaw_tol": iaw_tol, "ok": ok})
+    band = diag.model._filter_band()[:2]
+    report = {}
+    ok, err = tail_fwd_misses("main", args, band, report)  # max_abs_err is the main path's
+    dev = ff.omgs.device
+    ok = tail_fwd_misses("two_species", two_species_tail_case(np.random.default_rng(SEED + 4), dev)[1], band, report)[0] and ok
+    n_angles, n_wavelengths = TAIL_BWD_MANY_ANGLES
+    many = two_species_tail_case(np.random.default_rng(SEED + 1), dev, n_angles, n_wavelengths)[1]
+    ok = tail_fwd_misses(f"A{n_angles}", many, band, report)[0] and ok
+    for label, rows in ragged_tail_cuts(args):
+        ok = tail_fwd_misses(label, rows, band, report)[0] and ok
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_fwd", "max_abs_err": err, "iaw_band_nm": list(band), "cases": report,
+          "ok": ok})
     if not ok:
-        raise RuntimeError(
-            f"spectrum_tail_fwd: kernel misses the float64 twin by {epw_kernel:.3e} of the EPW peak "
-            f"(tol {TAIL_EPW_TOL}) and by {iaw_kernel:.3e} in the IAW band (tol {iaw_tol:.3e})"
-        )
+        bad = {n: r for n, r in report.items() if not r["ok"]}
+        raise RuntimeError(f"spectrum_tail_fwd: kernel misses its float64 twin: {bad}")
     B, G, L, NA = inputs[0].shape
     S = inputs[7].shape[-1]
+    kern = lambda: spectrum_tail.spectrum_tail_fwd(*args)  # noqa: E731
+    plain = lambda: spectrum_tail.plain(*args)  # noqa: E731
     # per (lineout, gradient, wavelength, angle) point, counted from the kernel
     # source with each transcendental as one operation: ~100 for kinematics,
     # the Landau term and the assembly, ~130 per ion species (Z' included)
@@ -548,13 +608,14 @@ def two_species_tail_case(rng, device, n_angles=3, L=96):
     return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t(np.resize([0.5, 0.3, 0.2], n_angles)), sarad, omgs)
 
 
-# wavelength counts at K6's block edges (it owns 127 wavelengths a block, its thread 0 being the left
-# halo): one wavelength, fewer than a block, and one past a multiple of the block's owned width; cut from
-# the main path's operands (2 lineouts) around TAIL_BWD_RAGGED_NM, inside the deck's EPW fit window
+# wavelength counts at the tail kernels' block edges (K6 owns 127 wavelengths a block, its thread 0 being
+# the left halo; K5 owns 128 and stages one right of them): one wavelength, fewer than a block, and one
+# past a multiple of K6's owned width (one short of two of K5's blocks); cut from the main path's operands
+# (2 lineouts) around TAIL_BWD_RAGGED_NM, inside the deck's EPW fit window
 TAIL_BWD_RAGGED_L = (1, 50, 2 * 127 + 1)
 TAIL_BWD_RAGGED_NM = 480.0
-# (angles, wavelengths) of a K6 case whose angles the kernel stages in several chunks of at most 12, the
-# last one narrower, over three blocks of wavelengths; drawn from its own generator
+# (angles, wavelengths) of a K5 and K6 case whose angles the kernels stage in several chunks of at most
+# 12, the last one narrower, over three blocks of wavelengths; drawn from its own generator
 TAIL_BWD_MANY_ANGLES = (70, 300)
 
 
@@ -584,12 +645,8 @@ def check_tail_bwd(diag, params, rng):
     n_angles, n_wavelengths = TAIL_BWD_MANY_ANGLES
     many = two_species_tail_case(np.random.default_rng(SEED + 1), ff.omgs.device, n_angles, n_wavelengths)
     ok = tail_bwd_misses(f"A{n_angles}", *many, report)[0] and ok
-    l_mid = int((lam - TAIL_BWD_RAGGED_NM).abs().argmin())
-    for width in TAIL_BWD_RAGGED_L:
-        cut = slice(l_mid - width // 2, l_mid - width // 2 + width)
-        rows = (args[0][:2, :, cut].contiguous(), args[1][:2, :, cut].contiguous(), *(a[:2] for a in args[2:11]),
-                *args[11:13], args[13][cut].contiguous())
-        ok = tail_bwd_misses(f"L{width}", noise[:2, cut].contiguous(), rows, report)[0] and ok
+    for label, rows, g_cut in ragged_tail_cuts(args, noise):
+        ok = tail_bwd_misses(label, g_cut, rows, report)[0] and ok
     emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "max_abs_err": worst, "per_output": report, "ok": ok})
     if not ok:
         bad = {n: r for n, r in report.items() if not r["ok"]}
@@ -609,9 +666,9 @@ def check_tail_bwd(diag, params, rng):
 
 def check_tail_real(diag, params, rng):
     """K5 and K6 on the real-data forward's own operands (its lookups at the deck's start values, the
-    128 lineouts of shot 101675): K6 against its float64 twin per output at the main case's limits, on
-    a seeded cotangent that is zero inside the iawfilter band; both kernels timed there.  Returns
-    {kernel: {"real_data_ms": ms}}."""
+    128 lineouts of shot 101675), each against its float64 twin at the main case's limits: K5 split at
+    the deck's iawfilter band (``tail_fwd_misses``), K6 per output on a seeded cotangent that is zero
+    inside that band; both kernels timed there.  Returns {kernel: {"real_data_ms": ms, ...}}."""
     import torch
 
     from tsadar_tpu_torch.core.physics.constants import C
@@ -625,6 +682,12 @@ def check_tail_real(diag, params, rng):
     lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
     noise = torch.tensor(rng.standard_normal((B, L)), dtype=torch.float32, device=ff.omgs.device)
     noise = torch.where((lam > blue) & (lam < red), 0.0, noise)
+    fwd_report = {}
+    fwd_ok, fwd_err = tail_fwd_misses("real_data", args, (blue, red), fwd_report)
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_fwd", "shapes": "real_data", "max_abs_err": fwd_err,
+          "iaw_band_nm": [blue, red], "cases": fwd_report, "ok": fwd_ok})
+    if not fwd_ok:
+        raise RuntimeError(f"spectrum_tail_fwd on the real-data operands: kernel misses its float64 twin: {fwd_report}")
     report = {}
     ok, worst = tail_bwd_misses("real_data", noise, args, report)
     emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "shapes": "real_data", "operands": [B, G, L, NA],
@@ -632,7 +695,8 @@ def check_tail_real(diag, params, rng):
     if not ok:
         bad = {n: r for n, r in report.items() if not r["ok"]}
         raise RuntimeError(f"spectrum_tail_bwd on the real-data operands: cotangents miss the float64 twin: {bad}")
-    return {"spectrum_tail_fwd": {"real_data_ms": device_times_ms(lambda: spectrum_tail.spectrum_tail_fwd(*args))},
+    return {"spectrum_tail_fwd": {"real_data_ms": device_times_ms(lambda: spectrum_tail.spectrum_tail_fwd(*args)),
+                                  "real_data_max_abs_err": fwd_err},
             "spectrum_tail_bwd": {"real_data_ms": device_times_ms(lambda: spectrum_tail.spectrum_tail_bwd(noise, *args))}}
 
 
@@ -849,6 +913,27 @@ def chi_case(label, bq, xq, T, meta, g):
     return {label: report}, ok and bwd["ok"], worst_val, float((dT.double() - dT64).abs().max())
 
 
+def chi_deposits(bq, xq, g, T, meta):
+    """Every deposit of K8 as one index [12 Q] into the flattened dT and one value tensor [12 Q] (the twin's
+    products), and the most deposits any entry of dT takes."""
+    import torch
+
+    from tsadar_tpu_torch.core.physics.interp import col_cell, rowmix_indices
+    from tsadar_tpu_torch.ops import chi_bilinear as cb
+
+    R, C = T.shape
+    ib0, ib1, wb = rowmix_indices(R, bq)
+    idx, vals = [], []
+    for gs, (c0, ns, v0, dv) in zip(g, cb.segments((C + 2) // 3, meta)):
+        iv0, wv, _ = col_cell(xq, v0, dv, ns)
+        for row, wr in ((ib0, 1.0 - wb), (ib1, wb)):
+            idx += [row * C + c0 + iv0, row * C + c0 + iv0 + 1]
+            vals += [wr * (gs * (1.0 - wv)), wr * (gs * wv)]
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    counts = torch.zeros(R * C, dtype=torch.float32, device=bq.device).scatter_add_(0, idx, torch.ones_like(vals))
+    return idx, vals, int(counts.max())
+
+
 def check_chi_bilinear(rng, diag, params):
     """K7 and K8 at the ARTS deck's shapes (Q = 246 784 queries, R = 256 rows, nvx = 128): on seeded
     queries that wrap in beta and run past both ends of the grids, with the edge set in front; and on
@@ -900,19 +985,25 @@ def check_chi_bilinear(rng, diag, params):
     rows["chi_bilinear_fwd"] = dict(
         max_abs_err=worst_val, ms=device_times_ms(fwd(bq, xq, T)), ms_deck_queries=device_times_ms(fwd(bq_deck, xq_deck, T_deck)),
         plain_ms=device_times_ms(lambda: cb.plain_fwd(bq, xq, T, meta)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_times_ms(lib),
+        library_ms=device_times_ms(lib), library_computes="grid_sample: one segment's values, 1 of K7's 6 outputs",
     )
     bwd = lambda b, x, tab, gg: (lambda: cb.chi_bilinear_bwd(b, x, tab, meta, gg))  # noqa: E731
-    # yardstick: one scatter_add_ (one of the twelve deposits, indices given)
-    idx = (torch.remainder(torch.floor(torch.remainder(bq, 2 * math.pi) * (R / (2 * math.pi))).long(), R) * C
-           + torch.clamp(torch.floor(torch.clamp((xq - v0x) / dvx, 0.0, nvx - 1.0)), max=nvx - 2.0).long())
-    lib = lambda: torch.zeros(R * C, dtype=torch.float32, device=dev).scatter_add_(0, idx, g[0])  # noqa: E731
+    # yardstick: one scatter_add_ of all twelve deposits of every query (indices and values built untimed)
+    scatter = {}
+    for label, (b, x, gg, tab) in (("seeded", (bq, xq, g, T)), ("deck_queries", (bq_deck, xq_deck, g_deck, T_deck))):
+        idx, vals, most = chi_deposits(b, x, gg, tab, meta)
+        lib = lambda idx=idx, vals=vals: torch.zeros(R * C, dtype=torch.float32, device=dev).scatter_add_(0, idx, vals)  # noqa: E731
+        dT_lib, dT_twin = lib().view(R, C), cb.plain_bwd(b, x, tab, meta, gg)[0]
+        scatter[label] = {"library_ms": device_times_ms(lib), "max_deposits": most,
+                          "library_vs_f32_twin_of_max": float((dT_lib - dT_twin).abs().max() / dT_twin.abs().max())}
+    emit({"phase": "chi_bilinear_bwd_deposits", "cases": scatter})
     b_ms, b_by = bound_ms(4 * (6 * Q + 2 * R * C + 4), 80 * Q)
     rows["chi_bilinear_bwd"] = dict(
         max_abs_err=worst_dT, ms=device_times_ms(bwd(bq, xq, T, g)),
         ms_deck_queries=device_times_ms(bwd(bq_deck, xq_deck, T_deck, g_deck)),
         plain_ms=device_times_ms(lambda: cb.plain_bwd(bq, xq, T, meta, g)), bound_ms=b_ms, bound_by=b_by,
-        library_ms=device_times_ms(lib),
+        library_ms=scatter["seeded"]["library_ms"], library_ms_deck_queries=scatter["deck_queries"]["library_ms"],
+        max_deposits=scatter["seeded"]["max_deposits"], max_deposits_deck_queries=scatter["deck_queries"]["max_deposits"],
     )
     return rows
 
@@ -1542,6 +1633,9 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": list(build.SOURCES),
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
                     for k, v in logs.items()}})
+    # registers, stack and spills of this slice's redesigned kernels, K5 at the main path's one species
+    ptxas = {"spectrum_tail_fwd": ptxas_usage(logs.get("spectrum_tail", ""), "spectrum_tail_kernelILi1EE"),
+             "chi_bilinear_bwd": ptxas_usage(logs.get("chi_bilinear", ""), "chi_bilinear_bwd_kernel")}
     emit({"phase": "sass", "instructions": {k: sass_instructions(k) for k in build.SOURCES}})
 
     cfg = load_deck()
@@ -1685,7 +1779,7 @@ def main():
         {"name": k, "tpu_kernel": KERNELS[k][2], "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": launches_of(k)[0], "fit_launches": launches_of(k)[1],
          "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2] if launches_of(k)[2] else 0.0,
-         "real_data_fit_launches": real_fit_launches[k], **rows[k]}
+         "real_data_fit_launches": real_fit_launches[k], **rows[k], **({"ptxas": ptxas[k]} if k in ptxas else {})}
         for k in wrappers
     ]})
     print(smi, flush=True)

@@ -16,6 +16,14 @@ Queries wrap both ways in beta and run past both ends of the velocity grid; a
 separate edge set holds beta = -1e-8, 2 pi - 1e-7, 0, +-pi and x below the
 grid, above it and exactly on nodes.  The kernels themselves run only on a
 CUDA device (``cuda`` marker).
+
+A float64 numpy model of the cotangent kernel's deposit rule (32 consecutive
+queries a warp; its 12 deposits keyed by (row 0, cell), runs of neighbouring
+lanes with one key summed by ``csrc/warp_deposit.cuh``'s segmented scan and
+added once, an aligned pair of columns as one vector atomic, exact zeros not
+added), with the block size read from
+``csrc/chi_bilinear.cu``, gives ``plain_bwd``'s dT on uniform, wrapping and
+angle-interleaved crowded queries (the deck's [L, A] layout, angles innermost).
 """
 
 import math
@@ -31,6 +39,8 @@ from tsadar_tpu.core.physics.form_factor import FormFactor as JaxFormFactor
 from tsadar_tpu.ops.bilinear_kernel import QT, chi_bilinear_pallas, chi_bilinear_pallas_bwd, tables_for_bilinear
 from tsadar_tpu_torch.core.physics import interp as pinterp
 from tsadar_tpu_torch.ops import chi_bilinear
+
+from .test_torch_interp_bwd import _cuda_constants, _model_warp_runs
 
 R, NVX = 128, 32
 C = 3 * NVX - 2
@@ -214,14 +224,85 @@ def test_raw_wrappers_refuse_cpu_tensors():
         chi_bilinear.chi_bilinear_bwd(t(bq), t(xq), t(T), _meta(torch.float32), t(gs))
 
 
+def _crowded(seed, n_lam=60, n_ang=241):
+    """(T, bq, xq, gs) with the deck's layout: [n_lam, n_ang] queries, the angles innermost, beta rising slowly
+    with the angle and |xi_e| ramping over the wavelengths past both ends of the grids, so that neighbouring
+    lanes share a (row, cell) and the clamped ends crowd."""
+    T, _, _, gs = _case(seed, n_lam * n_ang)
+    a, lam = np.arange(n_ang) / n_ang, np.linspace(-1.5, 1.5, n_lam)
+    bq = (0.6 + 0.5 * a[None, :] + 0.002 * np.arange(n_lam)[:, None]).ravel()
+    xq = (lam[:, None] * (V0X + DVX * (NVX - 1)) * (1.0 + 0.05 * a[None, :])).ravel()
+    return T, bq, xq, gs
+
+
+def _model_k8(bq, xq, T, gs):
+    """dT [R, C] as ``chi_bilinear_bwd_kernel`` deposits it, in float64, and the atomics it makes."""
+    threads = _cuda_constants("chi_bilinear")["kThreads"]
+    assert threads % 32 == 0
+    t = lambda a: torch.tensor(a, dtype=torch.float64)  # noqa: E731
+    ib0, ib1, wb = (x.numpy() for x in pinterp.rowmix_indices(R, t(bq)))
+    cx = [x.numpy() for x in pinterp.col_cell(t(xq), t(V0X), t(DVX), NVX)]
+    cp = [x.numpy() for x in pinterp.col_cell(t(xq), t(V0P), t(DVP), NVX - 2)]
+    w0 = 1.0 - wb
+    f0, f1, d0, d1 = gs[0] * (1.0 - cx[1]), gs[0] * cx[1], gs[1] * (1.0 - cx[1]), gs[1] * cx[1]
+    p0, p1 = gs[2] * (1.0 - cp[1]), gs[2] * cp[1]
+    o0, o1 = ib0 * C, ib1 * C
+    groups = [  # (key, values [Q, T], targets [Q, T]) of the two warp_runs calls
+        (o0 + cx[0], np.stack([w0 * f0, w0 * f1, w0 * d0, w0 * d1, wb * f0, wb * f1, wb * d0, wb * d1], 1),
+         np.stack([o + cx[0] + k for o in (o0, o1) for k in (0, 1, NVX, NVX + 1)], 1)),
+        (o0 + 2 * NVX + cp[0], np.stack([w0 * p0, w0 * p1, wb * p0, wb * p1], 1),
+         np.stack([o + 2 * NVX + cp[0] + k for o in (o0, o1) for k in (0, 1)], 1)),
+    ]
+    Q = bq.size
+    dT, made = np.zeros(R * C), 0
+    for first in range(0, Q, threads):  # one block; lanes past the end pass key -1 and zeros
+        for w in range(first, first + threads, 32):
+            j = w + np.arange(32)
+            valid = j < Q
+            jj = np.minimum(j, Q - 1)
+            for key, vals, targets in groups:
+                adds, v = _model_warp_runs(np.where(valid, key[jj], -1), np.where(valid[:, None], vals[jj], 0.0))
+                m = adds[:, None] & (v != 0.0)
+                np.add.at(dT, targets[jj][m], v[m])
+                # the columns of a deposit, (0, 1), (2, 3), ..., go as one vector atomic where both are non-zero
+                # and the first is even (8-byte aligned: dT's allocation is)
+                both = m[:, 0::2] & m[:, 1::2] & (targets[jj][:, 0::2] % 2 == 0)
+                made += int(m.sum()) - int(both.sum())
+    return dT.reshape(R, C), made
+
+
+@pytest.mark.parametrize("queries", ["uniform", "wrapping", "crowded"])
+def test_k8_deposit_model_matches_twin(queries):
+    """The cotangent kernel's deposit rule gives the twin's dT in float64; crowded warps add once a run."""
+    if queries == "crowded":
+        T, bq, xq, gs = _crowded(9)
+    else:
+        T, bq, xq, gs = _case(9, 5000)
+        if queries == "uniform":  # inside both grids and one turn
+            rng = np.random.default_rng(10)
+            bq, xq = rng.uniform(0.0, 2 * math.pi, bq.size), rng.uniform(V0X, V0X + DVX * (NVX - 1), xq.size)
+    gs[:, ::7] = 0.0  # some zero cotangents
+    want = chi_bilinear.plain_bwd(*(torch.tensor(a) for a in (bq, xq, T)), _meta(torch.float64), torch.tensor(gs))[0]
+    got, made = _model_k8(bq, xq, T, gs)
+    np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-12 * float(want.abs().max()))
+    if queries == "crowded":
+        assert made < 0.25 * 12 * bq.size
+    else:  # the even pairs go as one atomic; exact zeros (zero cotangents, clamped queries' end weights) not at all
+        assert made < 10 * bq.size
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_twins_on_card():
+@pytest.mark.parametrize("queries", ["seeded", "crowded"])
+def test_kernels_match_plain_twins_on_card(queries):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     dev = torch.device("cuda")
-    T, bq, xq, gs = _case(8, 50_000, np.float32)
-    eb, ex = _edge_queries()
-    bq[: eb.size], xq[: ex.size] = eb, ex
+    if queries == "crowded":
+        T, bq, xq, gs = (a.astype(np.float32) for a in _crowded(8))
+    else:
+        T, bq, xq, gs = _case(8, 50_000, np.float32)
+        eb, ex = _edge_queries()
+        bq[: eb.size], xq[: ex.size] = eb, ex
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     args = (t(bq), t(xq), t(T), _meta(torch.float32).to(dev))
     got, want = chi_bilinear.chi_bilinear_fwd(*args), chi_bilinear.plain_fwd(*args)

@@ -15,7 +15,8 @@ cubic's g zeroed there as the forward's overwrite does):
 * float32: ``plain_bwd`` against the Pallas kernels ``lin_interp_pallas2_bwd``
   and ``cubic_interp_pallas2_bwd`` in interpret mode, folded as the JAX tests
   fold them, to 1e-4 of max (those kernels carry a hi/lo-bf16 split of g);
-* a float64 numpy model of the kernels' deposit rule (``csrc/warp_deposit.cuh``:
+* a float64 numpy model of the kernels' deposit rule (``csrc/warp_deposit.cuh``,
+  also used by the chi tables' cotangent, ``tests/test_torch_chi_bilinear.py``:
   32 consecutive queries a warp, runs of neighbouring lanes in one cell summed
   by a segmented scan and added once by the run's last lane, exact zeros and
   taps outside the table not added; slabs of kSlab queries a block, one
@@ -220,17 +221,25 @@ def _cuda_constants(name):
     return consts
 
 
-def _model_warp_deposit(acc, key, v, first):
-    """``warp_deposit<T, first>`` on one warp in float64: keys [32], tap values [32, T]; returns the atomics made."""
+def _model_warp_runs(key, v):
+    """``warp_runs<T>`` on one warp in float64: keys [32], values [32, T]; returns (the lanes that add, the
+    values summed over each run into its last lane)."""
+    if not (v != 0.0).any():
+        return np.zeros(32, bool), v
     lane = np.arange(32)
     heads = (lane == 0) | (key != np.concatenate([key[:1], key[:-1]]))
-    adds = np.ones(32, bool)
-    if not heads.all():
-        start = np.maximum.accumulate(np.where(heads, lane, 0))
-        for d in (1, 2, 4, 8, 16):  # every lane reads its neighbour's value before any lane adds
-            up = np.concatenate([v[:d], v[:-d]])
-            v = np.where((lane - d >= start)[:, None], v + up, v)
-        adds = np.append(heads[1:], True)
+    if heads.all():
+        return np.ones(32, bool), v
+    start = np.maximum.accumulate(np.where(heads, lane, 0))
+    for d in (1, 2, 4, 8, 16):  # every lane reads its neighbour's value before any lane adds
+        up = np.concatenate([v[:d], v[:-d]])
+        v = np.where((lane - d >= start)[:, None], v + up, v)
+    return np.append(heads[1:], True), v
+
+
+def _model_warp_deposit(acc, key, v, first):
+    """``warp_deposit<T, first>`` on one warp in float64: keys [32], tap values [32, T]; returns the atomics made."""
+    adds, v = _model_warp_runs(key, v)
     made = 0
     for t in range(v.shape[1]):
         i = key + first + t

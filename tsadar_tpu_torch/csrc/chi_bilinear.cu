@@ -27,14 +27,31 @@
 // coalesced; the 12 gathers go through the read-only cache, where the whole
 // table fits in L2 and the rows a warp touches mostly in L1.
 //
-// Design, backward: one thread per query, which recomputes the cell, reads the
-// row difference T[ib1] - T[ib0] at its four columns for dbeta, and deposits
-// its 12 contributions to dT [R, C] with atomicAdd into L2.  dT (391 KB) does
-// not fit one block's shared memory whole, so there is no block accumulator;
-// neighbouring queries of a smooth query field share cells and their atomics
-// serialise.  The order of the atomics is not fixed, so the last bits of dT
+// Design, backward: one thread per query recomputes its cell, reads the row
+// difference T[ib1] - T[ib0] at its four columns for dbeta, and has 12
+// deposits for dT [R, C]: two rows x two columns x three segments, the first
+// two segments on one column cell (the velocity grid), the third on its own
+// (the pole grid).  dT (391 KB) does not fit one block's shared memory whole,
+// so the deposits are atomicAdds into L2.  The deck's queries are its [L, A]
+// phase velocities with the 241 fine angles innermost, so the 32 lanes of a
+// warp are 32 neighbouring angles at one wavelength: long runs of lanes fall
+// into one (row, cell), and thousands of deposits crowd the busiest entry
+// (chip_smoke.py reports max_deposits).  So the deposits go through
+// warp_deposit.cuh, keyed by (row 0, cell): a run of neighbouring lanes with
+// one key is summed by a segmented shuffle scan and added once by its last
+// lane, and exact zeros (clamped queries' weights 0 or 1, zero cotangents) are
+// not added.  Uniform queries hold no runs and pay a ballot.  The two columns
+// of a deposit are neighbours in dT: where the pair is 8-byte aligned (an even
+// column: dT's rows have an even length) it goes as one vector atomicAdd
+// (float2, sm_90 and later, device memory only), so uniform queries make ~8-9
+// atomics a query instead of 12 (14 % faster on them than two scalar ones on
+// the H100).  The order of the atomics is not fixed, so the last bits of dT
 // vary from run to run.  dxq is not formed here: the caller has the forward's
 // derivative outputs and multiplies.
+//
+// What the first design lost (H100 80GB HBM3, 700 W; chip_smoke.py): one
+// atomicAdd per deposit, 12 a query whatever the neighbours, took 0.0557 ms on
+// seeded uniform queries and 0.0811 ms on the deck's, 28x and 41x the bound.
 //
 // Index math exactly as bilinear_kernel.py:46-67.  Rows: m = beta mod 2 pi with
 // the divisor's sign (fmodf keeps the dividend's, so a negative remainder gets
@@ -44,7 +61,9 @@
 // vpos = clip(raw, 0, ns - 1), iv0 = min(floor(vpos), ns - 2), wv = vpos - iv0,
 // inside = 0 < raw < ns - 1, strict on both sides.
 
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "warp_deposit.cuh"
 
 namespace {
 
@@ -115,25 +134,31 @@ __global__ void chi_bilinear_fwd_kernel(const float* __restrict__ bq, const floa
   out[5 * sQ + q] = der;
 }
 
-// the four deposits of one segment, and its share of dbeta
-__device__ __forceinline__ float deposit(const float* __restrict__ r0, const float* __restrict__ r1,
-                                         float* __restrict__ d0, float* __restrict__ d1, float wb, int col,
-                                         const Cell& c, float g) {
-  const float g0 = g * (1.0f - c.w), g1 = g * c.w;
-  atomicAdd(d0 + col, (1.0f - wb) * g0);
-  atomicAdd(d0 + col + 1, (1.0f - wb) * g1);
-  atomicAdd(d1 + col, wb * g0);
-  atomicAdd(d1 + col + 1, wb * g1);
-  const float rd = (__ldg(r1 + col) - __ldg(r0 + col)) * (1.0f - c.w) + (__ldg(r1 + col + 1) - __ldg(r0 + col + 1)) * c.w;
-  return g * rd;
+// Adds (a, b) at p and p + 1: one vector atomic where p is 8-byte aligned and neither is an exact zero, else
+// each non-zero one on its own.
+__device__ __forceinline__ void add_pair(float* p, float a, float b) {
+  if (a != 0.0f && b != 0.0f && (reinterpret_cast<uintptr_t>(p) & 7u) == 0) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
+  } else {
+    add_nonzero(p, a);
+    add_nonzero(p + 1, b);
+  }
+}
+
+// the row difference of one segment at the query's two columns
+__device__ __forceinline__ float row_diff(const float* __restrict__ r0, const float* __restrict__ r1, int col,
+                                          const Cell& c) {
+  return (__ldg(r1 + col) - __ldg(r0 + col)) * (1.0f - c.w) + (__ldg(r1 + col + 1) - __ldg(r0 + col + 1)) * c.w;
 }
 
 __global__ void chi_bilinear_bwd_kernel(const float* __restrict__ bq, const float* __restrict__ xq,
                                         const float* __restrict__ T, const float* __restrict__ meta,
                                         const float* __restrict__ g, float* __restrict__ dT,
                                         float* __restrict__ dbeta, int Q, int R, int nvx, float rows_per_rad) {
-  const int q = blockIdx.x * kThreads + threadIdx.x;
-  if (q >= Q) return;
+  // every lane of a warp takes part in its scans: one past the end computes the last query with zero cotangents
+  const int q_raw = blockIdx.x * kThreads + threadIdx.x;
+  const bool valid = q_raw < Q;
+  const int q = valid ? q_raw : Q - 1;
   const float v0x = __ldg(meta), dvx = __ldg(meta + 1), v0p = __ldg(meta + 2), dvp = __ldg(meta + 3);
   const int C = 3 * nvx - 2;
   int ib0, ib1;
@@ -144,10 +169,36 @@ __global__ void chi_bilinear_bwd_kernel(const float* __restrict__ bq, const floa
   const Cell cx = col_cell(x, v0x, dvx, nvx);
   const Cell cp = col_cell(x, v0p, dvp, nvx - 2);
   const size_t sQ = static_cast<size_t>(Q);
-  float db = deposit(T + o0, T + o1, dT + o0, dT + o1, wb, cx.i0, cx, g[q]);
-  db += deposit(T + o0, T + o1, dT + o0, dT + o1, wb, nvx + cx.i0, cx, g[sQ + q]);
-  db += deposit(T + o0, T + o1, dT + o0, dT + o1, wb, 2 * nvx + cp.i0, cp, g[2 * sQ + q]);
-  dbeta[q] = db * rows_per_rad;
+  const float gf = valid ? g[q] : 0.0f, gd = valid ? g[sQ + q] : 0.0f, gc = valid ? g[2 * sQ + q] : 0.0f;
+  if (valid) {
+    const float* r0 = T + o0;
+    const float* r1 = T + o1;
+    float db = gf * row_diff(r0, r1, cx.i0, cx);
+    db += gd * row_diff(r0, r1, nvx + cx.i0, cx);
+    db += gc * row_diff(r0, r1, 2 * nvx + cp.i0, cp);
+    dbeta[q] = db * rows_per_rad;
+  }
+
+  // the first two segments' eight deposits share the key (row 0, velocity cell), the third's four (row 0, pole cell)
+  const float w0 = 1.0f - wb;
+  const float f0 = gf * (1.0f - cx.w), f1 = gf * cx.w, d0 = gd * (1.0f - cx.w), d1 = gd * cx.w;
+  const float p0 = gc * (1.0f - cp.w), p1 = gc * cp.w;
+  float vx[8] = {w0 * f0, w0 * f1, w0 * d0, w0 * d1, wb * f0, wb * f1, wb * d0, wb * d1};
+  float vp[4] = {w0 * p0, w0 * p1, wb * p0, wb * p1};
+  if (warp_runs(valid ? ib0 * C + cx.i0 : -1, vx)) {
+    float* t0 = dT + o0 + cx.i0;
+    float* t1 = dT + o1 + cx.i0;
+    add_pair(t0, vx[0], vx[1]);
+    add_pair(t0 + nvx, vx[2], vx[3]);
+    add_pair(t1, vx[4], vx[5]);
+    add_pair(t1 + nvx, vx[6], vx[7]);
+  }
+  if (warp_runs(valid ? ib0 * C + 2 * nvx + cp.i0 : -1, vp)) {
+    float* t0 = dT + o0 + 2 * nvx + cp.i0;
+    float* t1 = dT + o1 + 2 * nvx + cp.i0;
+    add_pair(t0, vp[0], vp[1]);
+    add_pair(t1, vp[2], vp[3]);
+  }
 }
 
 }  // namespace

@@ -125,20 +125,6 @@ constexpr size_t kBlockSmem = smem_floats(kMaxChunk) * sizeof(float) + kWarps * 
 static_assert(kBlockSmem <= 48 * 1024, "a block's shared memory must need no opt-in");
 static_assert(5 * (kBlockSmem + 1024) <= 228 * 1024, "5 blocks (1 KB each reserved) must fit an SM");
 
-// (row, column) of the entries e = tid, tid + kThreads, ... of a [rows][nc] slab, stepped without a division.
-struct SlabWalk {
-  int row, col, drow, dcol, nc;
-  __device__ SlabWalk(int tid, int nc) : row(tid / nc), col(tid % nc), drow(kThreads / nc), dcol(kThreads % nc), nc(nc) {}
-  __device__ void next() {
-    row += drow;
-    col += dcol;
-    if (col >= nc) {
-      col -= nc;
-      ++row;
-    }
-  }
-};
-
 // Sum v over the block (fixed order, float64) and add the sum to *dst.
 __device__ __forceinline__ void block_add(float value, double* dst, double* red) {
   double v = static_cast<double>(value);
@@ -287,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
 
       // ---- the slab: lf and chi in, coalesced; then f_e, k, xi_e and its slopes at every slab point
       __syncthreads();  // the previous chunk's slab is consumed
-      SlabWalk w(tid, nc);
+      SlabWalk<kThreads> w(tid, nc);
       for (int e = tid; e < kSlab * nc; e += kThreads, w.next()) {
         const int li = first - 1 + w.row;
         const bool ok = li >= 0 && li < L;
@@ -301,7 +287,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
       }
       copies_done();
       __syncthreads();
-      w = SlabWalk(tid, nc);
+      w = SlabWalk<kThreads>(tid, nc);
       for (int e = tid; e < kSlab * nc; e += kThreads, w.next()) {  // entry by entry: every thread takes ~nc of them
         const int i = w.row, li = first - 1 + i;
         if (li < 0 || li >= L) continue;
@@ -454,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
       __syncthreads();
       float* out_lf = g_lf + row0 + static_cast<size_t>(first) * NA + a0;
       float* out_chi = g_chi + row0 + static_cast<size_t>(first) * NA + a0;
-      w = SlabWalk(tid, nc);
+      w = SlabWalk<kThreads>(tid, nc);
       for (int e = tid; e < owned * nc; e += kThreads, w.next()) {
         const int p = e + nc;  // the owning thread's entry: thread w.row + 1
         const size_t d = static_cast<size_t>(w.row) * NA + w.col;

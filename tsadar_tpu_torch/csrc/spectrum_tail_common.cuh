@@ -1,8 +1,8 @@
 // Device functions shared by the spectrum-tail kernels (spectrum_tail.cu, the
 // forward, and spectrum_tail_bwd.cu, its cotangents): the physical constants
 // in float32, rounded from the same float64 expressions as
-// core/physics/constants.py, and the float32 Dawson branch of
-// core/physics/zprime.py.
+// core/physics/constants.py, the float32 Dawson branch of
+// core/physics/zprime.py, and the walk over a staged [wavelength][angle] slab.
 
 #pragma once
 
@@ -57,5 +57,20 @@ __device__ __forceinline__ float dawsn_f32(float x, const float* __restrict__ ga
   }
   return expf(-(u * u)) * series / sqrt_pi;
 }
+
+// (row, column) of the entries e = tid, tid + kStride, ... of a [rows][nc] slab, stepped without a division.
+template <int kStride>
+struct SlabWalk {
+  int row, col, drow, dcol, nc;
+  __device__ SlabWalk(int tid, int nc) : row(tid / nc), col(tid % nc), drow(kStride / nc), dcol(kStride % nc), nc(nc) {}
+  __device__ void next() {
+    row += drow;
+    col += dcol;
+    if (col >= nc) {
+      col -= nc;
+      ++row;
+    }
+  }
+};
 
 }  // namespace

@@ -47,24 +47,28 @@ def library_path(name):
 def build(names=SOURCES):
     """Compile every listed kernel whose library is missing; one nvcc each, all at once.
 
-    Returns {name: compiler output} of the kernels it compiled (ptxas reports
-    each kernel's registers, stack and spills).
+    Returns {name: compiler output} of every listed kernel whose output is kept
+    beside its library (``.log``): ptxas reports each kernel's registers,
+    stack and spills.
     """
     BUILD_DIR.mkdir(exist_ok=True)
-    jobs = []
+    jobs, logs = [], {}
     for name in names:
         src, so = library_path(name)
         if so.exists():
+            if so.with_suffix(".log").exists():
+                logs[name] = so.with_suffix(".log").read_text()
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         jobs.append((name, so, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed, logs = [], {}
+    failed = []
     for name, so, tmp, proc in jobs:
         logs[name], _ = proc.communicate()
         if proc.returncode:
             failed.append(f"{name} (exit {proc.returncode}):\n{logs[name]}")
         else:
+            so.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
