@@ -40,6 +40,10 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 namespace emu {
 

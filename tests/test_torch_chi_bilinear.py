@@ -17,6 +17,12 @@ separate edge set holds beta = -1e-8, 2 pi - 1e-7, 0, +-pi and x below the
 grid, above it and exactly on nodes.  The kernels themselves run only on a
 CUDA device (``cuda`` marker).
 
+The forward kernel reads T in a quad layout (each entry with its right and
+lower neighbours) that its layout step writes beside T: ``plain_pack`` is held
+to that definition, a float32 numpy model of the kernel's reads from the quads
+with its fmodf-free angle wrap to ``plain_fwd``, and the differentiable
+stacking ``ChiTables`` to gradcheck with the twin in the kernel's place.
+
 A float64 numpy model of the cotangent kernel's deposit rule (32 consecutive
 queries a warp; its 12 deposits keyed by (row 0, cell), runs of neighbouring
 lanes with one key summed by ``csrc/warp_deposit.cuh``'s segmented scan and
@@ -218,10 +224,99 @@ def test_gradcheck_of_the_autograd_function():
 def test_raw_wrappers_refuse_cpu_tensors():
     T, bq, xq, gs = _case(7, 16, np.float32)
     t = torch.tensor
+    T4 = chi_bilinear.plain_pack(t(T[:, :NVX]), t(T[:, NVX : 2 * NVX]), t(T[:, 2 * NVX :]))[1]
     with pytest.raises(ValueError, match="CUDA"):
-        chi_bilinear.chi_bilinear_fwd(t(bq), t(xq), t(T), _meta(torch.float32))
+        chi_bilinear.chi_bilinear_fwd(t(bq), t(xq), T4, _meta(torch.float32))
     with pytest.raises(ValueError, match="CUDA"):
         chi_bilinear.chi_bilinear_bwd(t(bq), t(xq), t(T), _meta(torch.float32), t(gs))
+    with pytest.raises(ValueError, match="CUDA"):
+        chi_bilinear.chi_bilinear_pack(t(T[:, :NVX]), t(T[:, NVX : 2 * NVX]), t(T[:, 2 * NVX :]))
+
+
+def _segments(T):
+    """f1d, df1d, chiR as column slices of T (rows C apart, as the projection's f1d is)."""
+    T = torch.as_tensor(T)
+    return T[:, :NVX], T[:, NVX : 2 * NVX], T[:, 2 * NVX :]
+
+
+def test_plain_pack_is_the_quad_layout():
+    T = _case(12, 1)[0]
+    T_got, T4 = chi_bilinear.plain_pack(*_segments(T))
+    np.testing.assert_array_equal(T_got.numpy(), T)
+    assert T4.shape == (R, C, 4)
+    # f1d's and df1d's quads of one column side by side (one 32-B sector), then chi_R's
+    where = {c: 2 * c for c in range(NVX)} | {NVX + c: 2 * c + 1 for c in range(NVX)} | {c: c for c in range(2 * NVX, C)}
+    assert sorted(where.values()) == list(range(C))
+    for r in (0, 5, R - 1):
+        for c in (0, 1, NVX - 1, NVX, NVX + 1, 2 * NVX - 1, 2 * NVX, 2 * NVX + 3, C - 1):
+            r1, c1 = (r + 1) % R, min(c + 1, C - 1)
+            np.testing.assert_array_equal(T4[r, where[c]].numpy(), [T[r, c], T[r, c1], T[r1, c], T[r1, c1]])
+
+
+def _wrap_kernel(beta):
+    """The forward kernel's angle wrap in float32: no fmodf where |beta| < 2 pi."""
+    two_pi = np.float32(2 * math.pi)
+    if 0.0 <= beta < two_pi:
+        return beta
+    if -two_pi < beta < 0.0:
+        return np.float32(beta + two_pi)
+    m = np.fmod(beta, two_pi)
+    return np.float32(m + two_pi) if m < 0.0 else m
+
+
+def _model_k7(bq, xq, T4, meta):
+    """[6, Q] as the forward kernel computes it in float32 from the quads: one quad a segment, f1d's and df1d's
+    at positions 2 i0 and 2 i0 + 1, chi_R's at 2 nvx + i0."""
+    rows_per_rad = np.float32(R / (2.0 * math.pi))
+    out = np.zeros((6, bq.size), np.float32)
+    for q, (b, x) in enumerate(zip(bq, xq)):
+        bpos = np.float32(_wrap_kernel(b) * rows_per_rad)
+        ifl = np.floor(bpos)
+        ib0, wb = int(ifl) % R, np.float32(bpos - ifl)
+        for s, (c0, c1, _, _) in enumerate(SEGS):
+            v0, dv = meta[2 * (s // 2)], meta[2 * (s // 2) + 1]
+            ns = c1 - c0
+            raw = np.float32((x - v0) / dv)
+            vpos = np.float32(min(max(raw, 0.0), ns - 1))
+            i0 = np.float32(min(np.floor(vpos), ns - 2))
+            w, inside = np.float32(vpos - i0), np.float32(0.0 < raw < ns - 1)
+            a, b_, c, d = T4[ib0, 2 * int(i0) + s if s < 2 else c0 + int(i0)]
+            f0, f1 = np.float32((1 - wb) * a + wb * c), np.float32((1 - wb) * b_ + wb * d)
+            out[s, q] = f0 * (1 - w) + f1 * w
+            out[3 + s, q] = np.float32(np.float32(f1 - f0) / dv) * inside
+    return out
+
+
+@pytest.mark.parametrize("queries", ["random", "edges"])
+def test_k7_model_from_the_quads_matches_twin_float32(queries):
+    """The forward kernel's reads (one quad a segment) and angle wrap give the twin's values in float32, and
+    the wrap selects the twin's rows on every edge query."""
+    T, bq, xq, _ = _case(13, 400, np.float32)
+    if queries == "edges":
+        bq, xq = (a.astype(np.float32) for a in _edge_queries())
+    meta = _meta(torch.float32).numpy()
+    T4 = chi_bilinear.plain_pack(*_segments(T))[1].numpy()
+    got = _model_k7(bq, xq, T4, meta)
+    want = _twin(T, bq, xq, torch.float32).numpy()
+    scale = np.abs(T).max()
+    np.testing.assert_allclose(got[:3], want[:3], rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(got[3:], want[3:], rtol=0, atol=1e-6 * scale / min(DVX, DVP))
+    rows = pinterp.rowmix_indices(R, torch.tensor(bq))[0].numpy()
+    rows_per_rad = np.float32(R / (2.0 * math.pi))
+    np.testing.assert_array_equal([int(np.floor(np.float32(_wrap_kernel(b) * rows_per_rad))) % R for b in bq], rows)
+
+
+def test_chi_tables_function_differentiates(monkeypatch):
+    """``ChiTables`` (the card's stacking, here with the layout twin in the kernel's place): T is the three
+    tables side by side, T4 their quads, and the tables' cotangents are dT's column slices."""
+    monkeypatch.setattr(chi_bilinear, "chi_bilinear_pack", chi_bilinear.plain_pack)
+    rng = np.random.default_rng(14)
+    nvx, rows = 5, 4
+    tabs = [torch.tensor(rng.standard_normal((rows, n)), requires_grad=True) for n in (nvx, nvx, nvx - 2)]
+    T, T4 = chi_bilinear.ChiTables.apply(*tabs)
+    assert not T4.requires_grad
+    torch.testing.assert_close(T4, chi_bilinear.plain_pack(*tabs)[1], rtol=0, atol=0)
+    assert torch.autograd.gradcheck(lambda *a: chi_bilinear.ChiTables.apply(*a)[0], tabs)
 
 
 def _crowded(seed, n_lam=60, n_ang=241):
@@ -305,7 +400,9 @@ def test_kernels_match_plain_twins_on_card(queries):
         bq[: eb.size], xq[: ex.size] = eb, ex
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
     args = (t(bq), t(xq), t(T), _meta(torch.float32).to(dev))
-    got, want = chi_bilinear.chi_bilinear_fwd(*args), chi_bilinear.plain_fwd(*args)
+    T_packed, T4 = chi_bilinear.chi_bilinear_pack(*_segments(t(T)))
+    assert torch.equal(T_packed, args[2]) and torch.equal(T4, chi_bilinear.plain_pack(*_segments(t(T)))[1])
+    got, want = chi_bilinear.chi_bilinear_fwd(*args[:2], T4, args[3]), chi_bilinear.plain_fwd(*args)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(np.abs(T).max()) / DVX)
     (dT, db), (dT_w, db_w) = chi_bilinear.chi_bilinear_bwd(*args, t(gs)), chi_bilinear.plain_bwd(*args, t(gs))
     torch.testing.assert_close(dT, dT_w, rtol=0, atol=1e-5 * float(dT_w.abs().max()))

@@ -1,0 +1,93 @@
+"""``tsadar_tpu_torch.inverse.fitter.fit`` on the main deck against the JAX package's ``fitter.fit``, on the CPU.
+
+The deck is ``tests/configs/time_test_{defaults,inputs}.yaml`` merged as
+written (shot 101675, pixels 500 and 505, batch size 2, ``method: l-bfgs-b``)
+with the raw-data visualizer off (matplotlib; the port has none) and, in
+tier-1, ``num_epochs`` cut to 3 L-BFGS-B iterations: both packages' final
+parameters agree to 1e-6 relative, the port's come with the lineout pixels and
+the time axis, and its record with the stage seconds and scipy's ``nit``.
+The JAX package's plots are stubbed out (only ``get_final_params`` is kept):
+they cost tier-1 seconds and say nothing of the fit.
+
+``test_fit_main_deck_as_written`` (slow-marked, as
+``tests/test_inverse/test_1d_data.py`` is) runs the deck's full 1000
+iterations in float64 and holds the result to that test's upstream-validated
+values and tolerances and its self-validated pins of both lineouts.  What
+``fit`` does not take yet (``plotting.detailed_breakdown``, the angular
+spectypes) raises before any data is read.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import yaml
+
+from tsadar_tpu.inverse import fitter as jax_fitter
+from tsadar_tpu.utils import mlflow_shim as mlflow
+from tsadar_tpu.utils.config import merge_configs
+from tsadar_tpu.utils.plotting import plotters
+from tsadar_tpu_torch.inverse import fitter
+
+from .torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+
+CONFIGS = Path(__file__).resolve().parent / "configs"
+ACTIVE = ("amp1_general", "amp2_general", "lam_general", "Te_electron", "ne_electron", "m_electron")
+
+
+def _deck(num_epochs=None):
+    decks = [yaml.safe_load((CONFIGS / f"time_test_{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+    cfg = merge_configs(*decks)
+    cfg["data"]["launch_data_visualizer"] = False
+    if num_epochs is not None:
+        cfg["optimizer"]["num_epochs"] = num_epochs
+    return cfg
+
+
+def test_fit_matches_jax_fitter(tmp_path, monkeypatch):
+    for name in ("plot_ts_data", "detailed_lineouts", "save_sigmas_params", "plot_final_params"):
+        monkeypatch.setattr(plotters, name, lambda *a, **k: None)
+    monkeypatch.setattr(plotters, "plot_loss_hist", lambda config, losses_init, losses, reduced_points, td: np.asarray(losses))
+    monkeypatch.setenv("TSADAR_RUNS_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    mlflow.set_experiment("tsadar-tpu-tests")
+    with mlflow.start_run(run_name="test_torch_fitter"):
+        want, want_loss = jax_fitter.fit(config=_deck(num_epochs=3))
+
+    record = {}
+    got, got_loss = fitter.fit(_deck(num_epochs=3), device="cpu", record=record)
+    assert list(got)[:2] == ["lineout pixel", "Time (ps)"]
+    np.testing.assert_array_equal(got["lineout pixel"], [500, 505])
+    assert np.all(np.isfinite(got["Time (ps)"]))
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-6)
+    for key in ACTIVE:
+        np.testing.assert_allclose(got[key], np.asarray(want[key]), rtol=1e-6, err_msg=key)
+    assert record["scipy"]["nit"] == [3]
+    assert all(record[k] > 0.0 for k in ("setup_seconds", "fit_seconds", "postprocess_seconds"))
+
+
+@pytest.mark.slow
+def test_fit_main_deck_as_written():
+    """``tests/test_inverse/test_1d_data.py`` on the port, in float64 on the CPU."""
+    got, _ = fitter.fit(_deck(), device="cpu")
+    real_values = {"amp1_general": (0.733, 1e-1), "amp2_general": (0.520, 1e-1), "lam_general": (523.855, 5e-3),
+                   "Te_electron": (0.641, 1e-1), "ne_electron": (0.228, 5e-2), "m_electron": (3.20, 15e-2)}
+    for key, (val, rtol) in real_values.items():
+        np.testing.assert_allclose(got[key][0], val, rtol=rtol, err_msg=key)
+    pinned = {"amp1_general": [0.7855, 0.7621], "amp2_general": [0.5073, 0.5169], "lam_general": [524.57, 524.45],
+              "Te_electron": [0.6476, 0.6282], "ne_electron": [0.2291, 0.2295], "m_electron": [3.155, 3.079]}
+    for key, vals in pinned.items():
+        np.testing.assert_allclose(got[key][:2], vals, rtol=3e-2, err_msg=key)
+
+
+@pytest.mark.parametrize("option", ["detailed_breakdown", "angular"])
+def test_fit_refuses_what_is_not_ported_up_front(option):
+    """``plotting.detailed_breakdown`` (spectrum_breakdown) and the angular postprocess raise before any data is read."""
+    cfg = _deck()
+    if option == "detailed_breakdown":
+        cfg["plotting"]["detailed_breakdown"] = True
+    else:
+        cfg["other"]["extraoptions"]["spectype"] = "angular_full"
+    cfg["data"]["shotnum"] = -1  # no such shot: a fit that read data would fail otherwise
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fitter.fit(cfg, device="cpu")

@@ -38,6 +38,7 @@ IAW_BAND = (516.0, 540.0)  # the whole-shot deck's iawfilter notch [nm]
 def _for_the_cpu(src):
     """A kernel source rewritten for the emulation: launches as calls, shared arrays as the block's buffers."""
     src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(", r"emu::launch(\2, \1, ", src, flags=re.S)
+    src = re.sub(r"(emu::launch\([^;]*?), \);", r"\1);", src)  # a kernel without arguments
     src = re.sub(r"extern __shared__ float (\w+)\[\];",
                  r"float* \1 = reinterpret_cast<float*>(emu::block->dynamic_smem.data());", src)
     return re.sub(r"__shared__ (\w+) (\w+)\[\w+\];", r"\1* \2 = reinterpret_cast<\1*>(emu::block->static_smem.data());", src)
@@ -69,8 +70,9 @@ def libs(tmp_path_factory):
 def emulated(libs, monkeypatch):
     """The kernel wrappers launching the emulated kernels on CPU tensors; returns the atomics counter."""
 
-    def check_input(t, name, ndim):  # build.check_input without its device test
-        if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
+    def check_input(t, name, ndim, strided_rows=False):  # build.check_input without its device test
+        rows_ok = strided_rows and ndim == 2 and t.stride(1) == 1
+        if t.dtype != torch.float32 or t.dim() != ndim or not (t.is_contiguous() or rows_ok):
             raise ValueError(f"{name}: {t.dtype}, {tuple(t.shape)}, contiguous {t.is_contiguous()}")
 
     def c_function(lib_name, fn_name, argtypes):
@@ -137,17 +139,19 @@ def _chi_queries(kind, rng, meta, nvx):
     v0x, dvx, v0p, dvp = (float(m) for m in meta)
     if kind == "edges":
         return cs.chi_edge_queries(v0x, dvx, v0p, dvp, nvx)
-    if kind == "uniform":
-        return rng.uniform(-7.0, 13.0, 3000), rng.uniform(v0x - 1.5, -v0x + 1.5, 3000)
+    if kind in ("uniform", "odd"):  # an odd count takes K7's scalar path for its queries and outputs
+        n = 3000 if kind == "uniform" else 2999
+        return rng.uniform(-7.0, 13.0, n), rng.uniform(v0x - 1.5, -v0x + 1.5, n)
     a, lam = np.arange(241) / 241, np.linspace(-1.5, 1.5, 12)
     bq = 0.6 + 0.5 * a[None, :] + 0.002 * np.arange(lam.size)[:, None]
     return bq.ravel(), (lam[:, None] * -v0x * (1.0 + 0.05 * a[None, :])).ravel()
 
 
-@pytest.mark.parametrize("kind", ["uniform", "edges", "crowded"])
+@pytest.mark.parametrize("kind", ["uniform", "edges", "crowded", "odd"])
 def test_k7_k8_emulated_match_twins(emulated, kind):
-    """K7 and K8 (csrc/chi_bilinear.cu) against their float32 and float64 twins (``chip_smoke.chi_case``, at
-    CHI_TOL and CHI_BWD_TOL); on crowded queries K8 makes far fewer atomics than its 12 deposits a query."""
+    """K7 with its layout step and K8 (csrc/chi_bilinear.cu) against their float32 and float64 twins
+    (``chip_smoke.chi_case``, at CHI_TOL and CHI_BWD_TOL; the layout bit for bit from T's column slices); on
+    crowded queries K8 makes far fewer atomics than its 12 deposits a query."""
     rng = np.random.default_rng(11)
     R, nvx = 32, 16
     v0x = -6.0 + 6.0 / nvx

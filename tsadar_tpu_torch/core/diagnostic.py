@@ -32,13 +32,13 @@ class ThomsonScatteringDiagnostic(nn.Module):
     def __init__(self, cfg, scattering_angles, device=None, dtype=None, mode_2v="table", shard_2v_points=False):
         super().__init__()
         if mode_2v != "table":
-            raise NotImplementedError(f"2V mode {mode_2v!r} is not ported yet (ROADMAP.md §1 item 12: ratcen/ratintn)")
+            raise NotImplementedError(f"2V mode {mode_2v!r} is not ported yet (ROADMAP.md §1 item 7: ratcen/ratintn)")
         if shard_2v_points:
-            raise NotImplementedError("2V point sharding is not ported yet (ROADMAP.md §1 item 13)")
+            raise NotImplementedError("2V point sharding is not ported yet (ROADMAP.md §1 item 8)")
         spectype = cfg["other"]["extraoptions"]["spectype"]
         self.angular = spectype == "angular_full"
         if "angular" in spectype and not self.angular:
-            raise NotImplementedError(f"spectype {spectype!r} is not ported yet: ARTS runs as 'angular_full' (ROADMAP.md §1 item 12)")
+            raise NotImplementedError(f"spectype {spectype!r} is not ported yet: ARTS runs as 'angular_full' (ROADMAP.md §1 item 7)")
         if not self.angular and not any(s in spectype for s in ("temporal", "imaging", "1d")):
             raise NotImplementedError(f"Unknown spectype: {spectype}")
         self.cfg = cfg

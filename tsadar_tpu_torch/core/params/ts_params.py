@@ -9,6 +9,8 @@ pytree, so a JAX leaf path names the same tensor here (see
 ``tsadar_tpu_torch.convert``).
 """
 
+import re
+
 import torch
 from torch import nn
 
@@ -216,3 +218,23 @@ def get_filter_spec(cfg_params, ts_params):
         if active:
             trainable[jax_path(name)] = p
     return trainable
+
+
+_DICT_KEY = re.compile(r"^(.*)\['([^']*)'\]$")
+
+
+def ravel_order(trainable):
+    """The JAX leaf paths of ``trainable`` in the order of JAX's ``ravel_pytree`` over the same leaves.
+
+    JAX flattens the dataclass fields in their order, which the modules here
+    follow, and a dict by its sorted keys: a ``ParamGroup``'s names come sorted
+    (``Te``, ``ne``; ``amp1``, ``amp2``, ``lam``), not in the order the group
+    registered them.  The flat vector of the scipy loop, the Hessian's
+    ``p * B + i`` layout and the sigmas' columns all follow this order.
+    """
+    groups = {}
+    for path in trainable:
+        m = _DICT_KEY.match(path)
+        head, key = (m.group(1), m.group(2)) if m else (path, "")
+        groups.setdefault(head, []).append((key, path))
+    return [path for members in groups.values() for _, path in sorted(members)]

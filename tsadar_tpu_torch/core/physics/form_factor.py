@@ -41,7 +41,7 @@ import torch
 
 from . import ratint
 from .constants import C, ME_KEV, MP_KEV, RE_CM, PLASMA_FREQ_CONST
-from .interp import chi_bilinear_lookup, cubic_lookup, interp1d_cubic_matmul, lin_lookup
+from .interp import chi_bilinear_lookup, chi_tables, cubic_lookup, interp1d_cubic_matmul, lin_lookup, plain_forms_on
 from .zprime import zprime
 
 # probe angular-frequency numerator: omgL = OMGL_NUM / lam  (lam in nm, omgL in 1/s)
@@ -342,7 +342,8 @@ class FormFactor:
         """
         from ...ops.spectrum_tail import SpectrumTail
 
-        reduced = SpectrumTail.apply(*self._lookups_1v(params), weights, self.sarad, self.omgs)
+        args = (*self._lookups_1v(params), weights, self.sarad, self.omgs)
+        reduced = _reduced_tail(*args) if plain_forms_on(*args[:2]) else SpectrumTail.apply(*args)
         return reduced, 2.0 * math.pi * C / self.omgs
 
     def __call__(self, params):
@@ -438,9 +439,9 @@ class FormFactor:
         ``interp.chi_bilinear_lookup``, the K7/K8 kernels on the card.
         """
         _, f1d, df1d, pole_grid, chiR_tab = self._chi_tables(vx, DF)
-        Tcat = torch.cat([f1d, df1d, chiR_tab], dim=-1)  # [B, 3 nvx - 2]
+        Tcat, T4 = chi_tables(f1d, df1d, chiR_tab)  # [B, 3 nvx - 2], and its quad layout on the card
         fe_vphi, dfe, chiR_raw = chi_bilinear_lookup(
-            Tcat, beta, xie_mag, vx[0], vx[1] - vx[0], pole_grid[0], pole_grid[1] - pole_grid[0]
+            Tcat, beta, xie_mag, vx[0], vx[1] - vx[0], pole_grid[0], pole_grid[1] - pole_grid[0], T4
         )
         # electron Landau term with the Kramers-Kronig-consistent MINUS sign (see ``_reduced_tail``)
         chiEI = -math.pi / (klde_mag**2) * dfe

@@ -24,12 +24,39 @@ differentiable lookups of ``tsadar_tpu_torch/ops``: a CPU tensor takes the
 plain forms, a CUDA tensor the kernels, forward and backward -- there is no
 fallback from one to the other.  ``interp1d_cubic_matmul`` (the
 EDF on the fixed 1024-point xi grid) stays a plain matmul, as in JAX.
+
+Inside ``plain_forms()`` (the counterpart of the JAX package's
+``pallas_disabled``) these lookups, ``ratint.pv_tables`` and the 1V spectrum
+tail call their plain forms directly, with no ``torch.autograd.Function`` in
+between, so that autograd can differentiate them twice (the sigma-Hessian of
+``utils.process.postprocess``); they take CPU tensors only there.
 """
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+
+_PLAIN_FORMS = False
+
+
+@contextlib.contextmanager
+def plain_forms():
+    """Route the kernel-backed functions to their plain PyTorch forms (CPU tensors only) inside the block."""
+    global _PLAIN_FORMS
+    prev, _PLAIN_FORMS = _PLAIN_FORMS, True
+    try:
+        yield
+    finally:
+        _PLAIN_FORMS = prev
+
+
+def plain_forms_on(*tensors):
+    """Whether ``plain_forms()`` is active; inside it every operand must lie on the CPU (no kernel is bypassed)."""
+    if _PLAIN_FORMS and any(t.device.type != "cpu" for t in tensors):
+        raise ValueError("plain_forms() takes CPU tensors: the card runs the kernels")
+    return _PLAIN_FORMS
 
 
 def lin_cell(q, x0, dx, n):
@@ -116,6 +143,8 @@ def lin_lookup(q, table, x0, dx):
     (the plain forms on the CPU, the K1/K2 kernels on the card)."""
     from ...ops.lin_lookup import LinLookup
 
+    if plain_forms_on(q, table):
+        return lin_lookup_plain(q, table, x0, dx)[0]
     return LinLookup.apply(q, table, x0, dx)
 
 
@@ -133,7 +162,7 @@ def interp1d_linear_pallas(xq, x, f):
     Differentiable in xq (g slope / dx strictly inside the grid, 0 at and
     beyond its ends) and in f; x gets no cotangent.
     """
-    from ...ops.lin_lookup import LinLookupPadded
+    from ...ops.lin_lookup import LinLookupPadded, plain_meta
 
     n = x.shape[0]
     rows = f if f.dim() == 2 else f[None]
@@ -141,6 +170,8 @@ def interp1d_linear_pallas(xq, x, f):
     fpad = F.pad(rows, (0, (n // PAD_BLOCK + 1) * PAD_BLOCK - n))
     x = x.detach()
     meta = torch.stack([x[0], x[1] - x[0], torch.full_like(x[0], n)]).to(f.dtype)
+    if plain_forms_on(q, fpad):
+        return plain_meta(q, fpad, meta)[0].reshape(xq.shape)
     return LinLookupPadded.apply(q, fpad, meta).reshape(xq.shape)
 
 
@@ -149,6 +180,8 @@ def cubic_lookup(q, table, meta):
     (the plain forms on the CPU, the K3/K4 kernels on the card)."""
     from ...ops.cubic_lookup import CubicLookup
 
+    if plain_forms_on(q, table):
+        return cubic_lookup_plain(q, table, meta)[0]
     return CubicLookup.apply(q, table, meta)
 
 
@@ -194,14 +227,29 @@ def select_columns_linear(S, v0, dv, v_q):
     return f0 * (1.0 - wv) + f1 * wv
 
 
-def chi_bilinear_lookup(Tcat, beta_q, xq, v0x, dvx, v0p, dvp):
+def chi_tables(f1d, df1d, chiR):
+    """(T, T4): the stacked table T [R, 3 nvx - 2] = (f1d | df1d | chiR) and, on the card, its quad layout
+    T4 [R, 3 nvx - 2, 4] for K7, both from one launch (``ops.chi_bilinear.ChiTables``); T4 is None on the CPU,
+    whose plain lookup reads T."""
+    from ...ops.chi_bilinear import ChiTables
+
+    if plain_forms_on(f1d, df1d, chiR) or f1d.device.type == "cpu":
+        return torch.cat([f1d, df1d, chiR], dim=-1), None
+    return ChiTables.apply(f1d, df1d, chiR)
+
+
+def chi_bilinear_lookup(Tcat, beta_q, xq, v0x, dvx, v0p, dvp, T4=None):
     """Differentiable fused lookup (fe, dfe, chiR), each shaped like beta_q, of the stacked 2V tables
     Tcat [R, 3 nvx - 2]: ``ops.chi_bilinear.ChiBilinear`` (the plain forms on the CPU, the K7/K8
-    kernels on the card).  (v0x, dvx) is the velocity grid, (v0p, dvp) the pole grid; they get no gradient."""
-    from ...ops.chi_bilinear import ChiBilinear
+    kernels on the card, K7 reading the quad layout T4 that ``chi_tables`` gives beside Tcat).  (v0x, dvx) is the
+    velocity grid, (v0p, dvp) the pole grid; they get no gradient."""
+    from ...ops.chi_bilinear import ChiBilinear, plain_fwd
 
     meta = torch.stack([torch.as_tensor(v, dtype=Tcat.dtype, device=Tcat.device) for v in (v0x, dvx, v0p, dvp)])
-    return ChiBilinear.apply(Tcat, beta_q, xq, meta.detach())
+    if plain_forms_on(Tcat, beta_q, xq):
+        out = plain_fwd(beta_q.reshape(-1), xq.reshape(-1), Tcat, meta.detach())
+        return tuple(o.view(beta_q.shape) for o in out[:3])
+    return ChiBilinear.apply(Tcat, beta_q, xq, meta.detach(), T4)
 
 
 def _cubic_W(xq, x):

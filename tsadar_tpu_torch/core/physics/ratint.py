@@ -109,8 +109,11 @@ def pv_tables(f, coef):
     """Differentiable interleaved pole table [B, 2M - 1] (midpoint poles at even, node poles at
     odd entries) of integrands f [B, N]: ``ops.pv_tables.PvTables`` (the plain twin on the CPU,
     the K9 kernel, forward and transposed, on the card)."""
-    from ...ops.pv_tables import PvTables
+    from ...ops.pv_tables import PvTables, plain
+    from .interp import plain_forms_on
 
+    if plain_forms_on(f, coef):
+        return plain(f, coef)
     return PvTables.apply(f, coef)
 
 

@@ -1,15 +1,23 @@
-"""Fit set-up from a shot's data: the counterpart of ``tsadar_tpu.inverse.fitter``'s first stage.
+"""Fit orchestration: the counterpart of ``tsadar_tpu.inverse.fitter`` for the 1D spectypes.
 
 ``_lineout_selection`` expands the deck's lineout range into pixels, trimmed
 to whole batches; ``load_data_for_fitting`` runs the data pipeline
 (``utils.process.prepare.prepare_data``) for the deck's shot (a multiplexed
-two-shot ARTS fit raises, as its loss does).  ``fit`` itself (the fit, then the sigma-Hessian
-postprocess and the plots) is not ported yet (ROADMAP.md §1 items 10-11): a
-1V fit is ``LossFunction`` + ``loops._1d_adam_loop_`` on the prepared batch.
+two-shot ARTS fit raises, as its loss does); ``fit`` runs the batched 1D loop
+(``loops.one_d_loop``: adam, or scipy's minimizer as the main deck asks) and
+the postprocess (refits, sigmas, final parameters;
+``utils.process.postprocess``).  The angular fit's postprocess is not ported
+yet (ROADMAP.md §1 item 7), so ``fit`` takes the 1D spectypes only: for an
+ARTS image use ``loops.angular_optax``.
 """
 
+import time
+
+import numpy as np
+
 from ..utils.console import log_info
-from ..utils.process import prepare
+from ..utils.process import postprocess, prepare
+from .loops import one_d_loop
 
 
 def _lineout_selection(config):
@@ -32,5 +40,46 @@ def load_data_for_fitting(config):
     """(prepared data, scattering angles, axes) of the deck's shot."""
     shot = config["data"]["shotnum"]
     if isinstance(shot, list):
-        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 12)")
+        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 7)")
     return prepare.prepare_data(config, shot)
+
+
+def fit(config, device=None, record=None):
+    """Fit the deck's lineouts of its shot: ``(final parameters, total loss)``.
+
+    The fit runs on the card unless ``device="cpu"`` is given; the sigma-Hessian
+    of the postprocess runs on the CPU in float64 either way.  The final
+    parameters are ``postprocess.get_final_params``'s dict of numpy arrays (with
+    ``"sigmas"`` when ``other.calc_sigmas`` is on).  The stage seconds are
+    logged and, with ``record`` (a dict), kept there (``setup_seconds``,
+    ``fit_seconds``, ``postprocess_seconds``) beside the scipy loop's
+    ``scipy`` results per batch and the postprocess's own entries.  ``config``
+    is changed as the JAX package changes it (the lineout pixels, the
+    quantities the data pipeline derives).
+    """
+    postprocess.refuse_unported(config)  # the angular spectypes, plotting.detailed_breakdown
+    record = {} if record is None else record
+
+    stage_start = time.perf_counter()
+    config = _lineout_selection(config)
+    all_data, sa, all_axes = load_data_for_fitting(config)
+    n_samples = max(len(all_data["e_data"]), len(all_data["i_data"]))
+    sample_indices = np.arange(n_samples)
+    num_batches = n_samples // config["optimizer"]["batch_size"] or 1
+    record["setup_seconds"] = time.perf_counter() - stage_start
+    log_info(f"setup: {record['setup_seconds']:.2f} s")
+
+    stage_start = time.perf_counter()
+    log_info("minimizing")
+    fitted_weights, overall_loss, loss_fn = one_d_loop(
+        config, all_data, sa, sample_indices, num_batches, device=device, record=record.setdefault("scipy", {})
+    )
+    record["fit_seconds"] = time.perf_counter() - stage_start
+    log_info(f"fit: {record['fit_seconds']:.2f} s, overall loss {float(overall_loss):.6g}")
+
+    stage_start = time.perf_counter()
+    log_info("postprocessing")
+    final_params = postprocess.postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record)
+    record["postprocess_seconds"] = time.perf_counter() - stage_start
+    log_info(f"postprocess: {record['postprocess_seconds']:.2f} s")
+    return final_params, float(overall_loss)

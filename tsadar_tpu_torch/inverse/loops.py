@@ -1,11 +1,12 @@
 """Optimizer loops: 1D (batched-lineout) fitting and the angular (ARTS) fit.
 
 Counterpart of ``tsadar_tpu.inverse.loops``: ``_1d_adam_loop_`` (adam epochs
-with best-so-far tracking), ``one_d_loop`` (the batch dispatch with the
-optional sequential warm start, ``method: adam``) and ``angular_optax`` with
-its step loop ``_angular_loop_`` (one ARTS image, ``adam`` or ``rmsprop``,
-early stopping).  The scipy and L-BFGS
-loops are not ported yet (ROADMAP.md §1 item 11).
+with best-so-far tracking), ``_1d_scipy_loop_`` (scipy's minimizer on the
+host, ``method: l-bfgs-b`` as the main deck asks, with the loss and its
+gradient from the device), ``one_d_loop`` (the batch dispatch with the
+optional sequential warm start) and ``angular_optax`` with its step loop
+``_angular_loop_`` (one ARTS image, ``adam`` or ``rmsprop``, early stopping).
+The device L-BFGS (``method: lbfgs``) is not ported yet (ROADMAP.md §1 item 3).
 
 Adam is ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8): the same update as
 ``optax.adam``.  ``optax.rmsprop`` (decay 0.9, eps 1e-8 inside the root, zero
@@ -20,8 +21,8 @@ import time
 import numpy as np
 import torch
 
-from ..core.params.ts_params import ThomsonParams, get_filter_spec
-from .loss import LossFunction
+from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
+from .loss import LossFunction, ravel, unravel_into
 
 
 def _init_params(config, previous_weights, batch_size=None, device=None, dtype=None):
@@ -114,11 +115,54 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
     return float(best_loss), ts_params
 
 
-def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dtype=None):
-    """Batched-lineout fitting loop: ``(parameters per batch, summed best loss, loss function)``."""
+def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None):
+    """scipy's minimizer over the flat active parameters of one lineout batch: ``(final loss, parameters)``.
+
+    The JAX loop's call as it makes it: ``optimizer.method`` (``l-bfgs-b`` in
+    the decks), the gradient from autograd when ``grad_method`` is ``AD``, and
+    only ``disp`` and ``maxiter = num_epochs`` as options.  The parameters live
+    on the loss's device: each evaluation writes the float64 vector into them
+    and reads the loss and its flat gradient back (``LossFunction.vg_loss``).
+    ``record`` (a dict), if given, gets scipy's ``message``, ``nit``, ``nfev``,
+    ``success`` and the seconds of the minimization, one entry a call.
+    """
+    import scipy.optimize as spopt
+
+    dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
+    ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
+    trainable = get_filter_spec(config["parameters"], ts_params)
+    leaves = [trainable[k] for k in ravel_order(trainable)]
+    batch = loss_fn.device_batch(batch)  # once per fit, not per evaluation
+    ad = config["optimizer"]["grad_method"] == "AD"
+    t0 = time.perf_counter()
+    res = spopt.minimize(
+        loss_fn.vg_loss if ad else loss_fn.loss,
+        ravel(leaves),
+        args=(ts_params, batch),
+        method=config["optimizer"]["method"],
+        jac=ad,
+        options={"disp": config["optimizer"].get("disp", False), "maxiter": config["optimizer"]["num_epochs"]},
+    )
+    if record is not None:
+        for key, val in (("message", str(res.message)), ("nit", int(res.get("nit", -1))), ("nfev", int(res.nfev)),
+                         ("success", bool(res.success)), ("seconds", time.perf_counter() - t0)):
+            record.setdefault(key, []).append(val)
+    unravel_into(res["x"], leaves)
+    for p in leaves:
+        p.grad = None
+    return float(res["fun"]), ts_params
+
+
+def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dtype=None, record=None):
+    """Batched-lineout fitting loop: ``(parameters per batch, summed best loss, loss function)``.
+
+    ``method: adam`` shares one loss function over the batches; a scipy method
+    makes a fresh one per batch, as the JAX loop does, and returns the last.
+    ``record`` (a dict) goes to ``_1d_scipy_loop_``.
+    """
     method = config["optimizer"]["method"]
-    if method != "adam":
-        raise NotImplementedError(f"optimizer method {method!r} is not ported yet (ROADMAP.md §1 item 11)")
+    if method == "lbfgs":
+        raise NotImplementedError("the device L-BFGS (method: lbfgs) is not ported yet (ROADMAP.md §1 item 3)")
     bs = config["optimizer"]["batch_size"]
     loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
 
@@ -126,7 +170,11 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
     all_weights, overall_loss, previous_weights = [], 0.0, None
     for i_batch in range(num_batches):
         batch = _slice_batch(all_data, batch_indices[i_batch])
-        best_loss, best_weights = _1d_adam_loop_(config, loss_fn, previous_weights, batch)
+        if method == "adam":
+            best_loss, best_weights = _1d_adam_loop_(config, loss_fn, previous_weights, batch)
+        else:
+            loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
+            best_loss, best_weights = _1d_scipy_loop_(config, loss_fn, previous_weights, batch, record=record)
         all_weights.append(best_weights)
         overall_loss += best_loss
         if config["optimizer"].get("sequential", False):
@@ -156,7 +204,7 @@ def _optimizer(method, leaves, lr):
         return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     if method == "rmsprop":
         return RMSprop(leaves, lr=lr)
-    raise NotImplementedError(f"optimizer method {method!r} is not ported yet (ROADMAP.md §1 item 11)")
+    raise NotImplementedError(f"optimizer method {method!r} is not ported yet: the angular fit takes adam and rmsprop (ROADMAP.md §1 item 7)")
 
 
 def _angular_batch(all_data, sl):
@@ -185,7 +233,7 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
     lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
     if isinstance(config["data"].get("shotnum"), list):
-        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 12)")
+        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 7)")
     batch = _angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
 
     loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)

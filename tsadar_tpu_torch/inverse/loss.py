@@ -12,18 +12,28 @@ backward runs through the hand-written kernels.
 The angular arm is the same code on unbatched parameters: ``e_data`` holds the
 lineout window of the image in resolution units [n_units, wavelengths].
 
+The scipy interface (``vg_loss``, ``loss``) takes and gives float64 numpy
+vectors of the active parameters in JAX's ``ravel_pytree`` order
+(``core.params.ravel_order``).  ``array_loss`` is the per-lineout loss of the
+postprocess, and ``hvp_rows`` / ``h_loss_wrt_params`` the Hessian of the
+sigma loss ``_loss_for_hess_fn_`` over that vector, by a second backward pass
+(autograd of autograd): they run on CPU float64 parameters inside
+``interp.plain_forms()``, as the JAX package's Hessian runs with its Pallas
+kernels disabled.
+
 Not ported yet (each raises ``NotImplementedError``): the multiplexed two-shot
 angular loss with its EDF rotation and the 2V moment penalties (ROADMAP.md §1
-item 12), the Hessian (item 10) and the flattened scipy interface (item 11).
+item 7).
 """
 
 import math
 
+import numpy as np
 import torch
 
 from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params.distributions import act
-from ..core.params.ts_params import get_filter_spec
+from ..core.params.ts_params import get_filter_spec, ravel_order
 
 
 def _masked_reduce(err, mask, reduce_func):
@@ -51,8 +61,17 @@ class LossFunction:
         else:
             self.i_norm = self.e_norm = 1.0
         if isinstance(cfg["data"].get("shotnum"), list):
-            raise NotImplementedError("the multiplexed two-shot angular loss is not ported yet (ROADMAP.md §1 item 12)")
+            raise NotImplementedError("the multiplexed two-shot angular loss is not ported yet (ROADMAP.md §1 item 7)")
         self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype)
+        self.scattering_angles, self._dummy_batch, self._host_f64 = scattering_angles, dummy_batch, None
+
+    def host_f64(self):
+        """This loss on the CPU in float64 (itself if it is that already): the sigma-Hessian's."""
+        if self.ts_diag.device.type == "cpu" and self.ts_diag.dtype == torch.float64:
+            return self
+        if self._host_f64 is None:
+            self._host_f64 = LossFunction(self.cfg, self.scattering_angles, self._dummy_batch, device="cpu")
+        return self._host_f64
 
     def device_batch(self, batch):
         """The batch as tensors on the loss's device: convert once per fit, not per call."""
@@ -155,13 +174,58 @@ class LossFunction:
         total_loss, sqdev, ThryE, ThryI, params, _ = self.calc_loss(ts_params, batch, denom=None, reduce_func="mean_axis1")
         return total_loss, sqdev, ThryE, ThryI, params
 
-    def vg_loss(self, *args, **kwargs):
-        raise NotImplementedError("the flattened scipy interface is not ported yet (ROADMAP.md §1 item 11)")
+    def array_loss(self, ts_params, batch):
+        """``post_loss`` without autograd's bookkeeping: (per-lineout loss, sqdev, ThryE, ThryI, parameters)."""
+        with torch.no_grad():
+            return self.post_loss(ts_params, batch)
 
-    loss = vg_loss
+    # the scipy interface: float64 numpy vectors of the active parameters, in JAX's ravel order
 
-    def h_loss_wrt_params(self, *args, **kwargs):
-        raise NotImplementedError("the Hessian is not ported yet (ROADMAP.md §1 item 10)")
+    def vg_loss(self, x, ts_params, batch):
+        """(loss, flat gradient) at the flat active parameters ``x``, written into ``ts_params`` first."""
+        trainable = get_filter_spec(self.cfg["parameters"], ts_params)
+        order = ravel_order(trainable)
+        unravel_into(x, [trainable[k] for k in order])
+        (value, _), grads = self.value_and_grad(ts_params, batch, trainable)
+        return float(value), ravel([grads[k] for k in order])
+
+    def loss(self, x, ts_params, batch):
+        """The loss at the flat active parameters ``x`` (scipy without gradients: ``grad_method`` not AD)."""
+        trainable = get_filter_spec(self.cfg["parameters"], ts_params)
+        unravel_into(x, [trainable[k] for k in ravel_order(trainable)])
+        with torch.no_grad():
+            return float(self.__loss__(ts_params, batch)[0])
+
+    # the sigma-Hessian
+
+    def _loss_for_hess_fn_(self, ts_params, batch):
+        """The sigma loss: the windowed errors summed, each pixel weighed by 1 / (|data| + 1e-10)."""
+        batch = self.device_batch(batch)
+        ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(ts_params(), batch)
+        uncert = [torch.abs(batch["i_data"]) + 1e-10, torch.abs(batch["e_data"]) + 1e-10]
+        i_error, e_error, *_ = self.calc_ei_error(batch, ThryI, lamAxisI, ThryE, lamAxisE, uncert, reduce_func="sum")
+        return i_error + e_error
+
+    def hvp_rows(self, ts_params, batch, tangents):
+        """[T, P]: the Hessian of ``_loss_for_hess_fn_`` over the flat active parameters (ravel order) times each
+        tangent of ``tangents`` [T, P], by reverse over reverse (run inside ``interp.plain_forms()``)."""
+        trainable = get_filter_spec(self.cfg["parameters"], ts_params)
+        leaves = [trainable[k] for k in ravel_order(trainable)]
+        tangents = torch.as_tensor(tangents, dtype=leaves[0].dtype, device=leaves[0].device)
+        with torch.enable_grad():
+            value = self._loss_for_hess_fn_(ts_params, batch)
+            grad = torch.cat([g.reshape(-1) for g in torch.autograd.grad(value, leaves, create_graph=True)])
+            rows = []
+            for v in tangents:
+                hv = torch.autograd.grad(grad, leaves, grad_outputs=v, retain_graph=True, allow_unused=True)
+                rows.append(torch.cat([(torch.zeros_like(p) if h is None else h).reshape(-1) for p, h in zip(leaves, hv)]))
+        return torch.stack(rows).detach()
+
+    def h_loss_wrt_params(self, ts_params, batch):
+        """[P, P]: the dense Hessian of ``_loss_for_hess_fn_`` over the flat active parameters, as numpy (the JAX
+        package gives it over its whole parameter pytree; here over the vector that the sigmas read)."""
+        n = sum(p.numel() for p in get_filter_spec(self.cfg["parameters"], ts_params).values())
+        return self.hvp_rows(ts_params, batch, torch.eye(n, dtype=torch.float64)).cpu().numpy()
 
     # -------------------------------------------------------------- penalties
 
@@ -199,10 +263,27 @@ class LossFunction:
     def moment_penalties(self, params):
         """(density, temperature, momentum) moment losses of the physical 1V EDF."""
         if self.cfg["parameters"]["electron"]["fe"].get("dim", 1) == 2:
-            raise NotImplementedError("2V moment penalties are not ported yet (ROADMAP.md §1 item 12)")
+            raise NotImplementedError("2V moment penalties are not ported yet (ROADMAP.md §1 item 7)")
         fe, v = params["electron"]["fe"], params["electron"]["v"]
         dv = (v[..., 1] - v[..., 0])[..., None]
         density_loss = torch.mean(torch.square(1.0 - torch.sum(fe * dv, dim=-1)))
         temperature_loss = torch.mean(torch.square(1.0 - torch.sum(fe * v**2 * dv, dim=-1)))
         momentum_loss = torch.mean(torch.square(torch.sum(fe * v * dv, dim=-1)))
         return density_loss, temperature_loss, momentum_loss
+
+
+def ravel(tensors):
+    """The tensors flattened and joined, as a float64 numpy vector (the scipy side)."""
+    return torch.cat([t.detach().reshape(-1) for t in tensors]).double().cpu().numpy()
+
+
+def unravel_into(x, leaves):
+    """Write the flat float64 vector ``x`` into ``leaves`` in order, in their own dtype and device."""
+    x = torch.from_numpy(np.asarray(x, dtype=np.float64)).to(device=leaves[0].device, dtype=leaves[0].dtype)
+    with torch.no_grad():
+        start = 0
+        for p in leaves:
+            p.copy_(x[start : start + p.numel()].view_as(p))
+            start += p.numel()
+    if start != x.numel():
+        raise ValueError(f"a vector of {x.numel()} values for {start} parameters")

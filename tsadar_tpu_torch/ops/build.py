@@ -90,8 +90,10 @@ def c_function(lib_name, fn_name, argtypes):
     return fn
 
 
-def check_input(t, name, ndim):
-    """A kernel operand must be a contiguous float32 CUDA tensor of rank ``ndim``.
+def check_input(t, name, ndim, strided_rows=False):
+    """A kernel operand must be a contiguous float32 CUDA tensor of rank ``ndim``
+    (with ``strided_rows``, a matrix whose rows may lie apart, its columns
+    next to each other: a column slice of a wider one).
 
     The raw wrappers record nothing for autograd: gradients flow through the
     ``torch.autograd.Function`` beside each wrapper, whose forward and backward
@@ -105,8 +107,9 @@ def check_input(t, name, ndim):
         raise TypeError(f"{name} must be float32, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dimensions, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    rows_ok = strided_rows and ndim == 2 and t.stride(1) == 1 and t.stride(0) >= t.shape[1]
+    if not (t.is_contiguous() or rows_ok):
+        raise ValueError(f"{name} must be contiguous" + (" in its rows" if strided_rows else ""))
     if torch.is_grad_enabled() and t.requires_grad:
         raise ValueError(f"{name} requires grad: call the kernel through its autograd Function, not its raw wrapper")
 
