@@ -39,6 +39,22 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    cut to MAIN_DECK_SHORT_FIT iterations, written into (batch 0, slot 1), and
    the float64 sigma-Hessian on the CPU (``main_deck_postprocess``: every
    sigma finite and non-zero);
+   Then the rest of the 1V fitter, each path with the launch counts read
+   around it: ``one_d_loop`` with ``method: lbfgs`` (the device L-BFGS) on
+   ``tests/test_inverse/test_1d_random.py``'s seed-7 synthetic setup, 150
+   steps (``lbfgs_fit``: final loss under 1e-4, every active parameter within
+   10 % of the truth, K1-K6 and both K9 modes once an evaluation); the IAW
+   deck (``configs/1d``, ps lineouts 535:735:100, only the loss's IAW arm):
+   loss and gradient against the CPU float64 path and K5/K6 at its ion window
+   against their float64 twins (``iaw_deck_grad_check``), then ``fitter.fit``
+   with refits and sigmas (``iaw_deck_fit``: ``test_1d_iaw_data.py``'s pins,
+   the refit of lineout 1 in its slot, 8 finite sigmas, lineout 0's
+   positive); ``fitter.fit`` on shot 111411 (``shot_111411_fit``:
+   ``test_1d_data_111411.py``'s pins and guards) and on the imaging shot
+   112059 with adam and the spectrum breakdown (``imaging_112059_fit``:
+   ``test_imaging_data.py``'s pins, the breakdown finite); and the main deck's
+   two lineouts with a pointwise ``Arbitrary1V`` EDF, forward, loss and
+   gradient against the CPU float64 path (``arbitrary_1v``);
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -107,6 +123,10 @@ LOOKUP_TOL = 1e-5
 TAIL_EPW_TOL = 1e-3
 TAIL_IAW_RATIO = 2.0
 TAIL_IAW_FLOOR = 1e-6
+# K6 at the IAW deck's ion window may miss its float64 twin by TAIL_IAW_RATIO times the float32 twin's miss,
+# but never by this share of the output's largest float64 entry or more: a zero cotangent misses by 1 of it,
+# a sign-flipped one by 2
+TAIL_IAW_BWD_CEILING = 0.25
 # table cotangents of the lookups vs their float32 plain twins (scatter_add_),
 # of max |cotangent|: both sum float32 terms per entry in an order of their own,
 # ~50 (K2) or ~640 (K4) on uniform queries, and up to ~1.0e4 (K2) and ~1.4e4
@@ -138,6 +158,8 @@ TAIL_BWD_TI_FLOOR = 1e-6
 LOSS_TOL = 5e-3
 GRAD_TOL = 2e-2
 GRAD_F32_RATIO = 2.0  # a gradient that float32 itself misses by more than GRAD_TOL: at most this times that miss
+# ... and always by less than this share of its largest float64 entry: what an all-zero gradient misses by
+GRAD_ZERO_MISS = 1.0
 FIT_STEPS = 200
 FIT_LR = 2e-2
 FIT_LOSS_DROP = 0.1  # final best loss <= this share of the first
@@ -552,7 +574,7 @@ def ragged_tail_cuts(args, noise=None):
     for width in TAIL_BWD_RAGGED_L:
         cut = slice(l_mid - width // 2, l_mid - width // 2 + width)
         rows = (args[0][:2, :, cut].contiguous(), args[1][:2, :, cut].contiguous(), *(a[:2] for a in args[2:11]),
-                *args[11:13], args[13][cut].contiguous())
+                *args[11:13], args[13][cut].contiguous(), *(a[:2] for a in args[14:]))
         yield (f"L{width}", rows) if noise is None else (f"L{width}", rows, noise[:2, cut].contiguous())
 
 
@@ -565,8 +587,7 @@ def check_tail(diag, params):
     from tsadar_tpu_torch.ops import spectrum_tail
 
     ff = diag.model.electron_form_factor
-    inputs = ff._lookups_1v(params())
-    args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
+    args = inputs = ff.tail_args(params(), diag.model.weight)
     band = diag.model._filter_band()[:2]
     report = {}
     ok, err = tail_fwd_misses("main", args, band, report)  # max_abs_err is the main path's
@@ -598,9 +619,11 @@ def check_tail(diag, params):
     )
 
 
-def tail_bwd_misses(label, g, args, report):
+def tail_bwd_misses(label, g, args, report, f32_ratio=None):
     """K6 against its twin in float64 on (g, args), per output (the float32 twin's own
-    miss beside it); fills ``report`` and returns (all ok, max |kernel - float64 twin|)."""
+    miss beside it); with ``f32_ratio``, an output that the float32 twin misses by more than its
+    limit may miss by that ratio times the twin's miss, up to TAIL_IAW_BWD_CEILING of the output's
+    scale.  Fills ``report`` and returns (all ok, max |kernel - float64 twin|)."""
     import torch
 
     from tsadar_tpu_torch.ops import spectrum_tail
@@ -614,6 +637,8 @@ def tail_bwd_misses(label, g, args, report):
     for name, k, w, r in zip(names, got, want, ref):
         tol = TAIL_BWD_TOL * scales[name] + floors.get(name, 0.0)
         miss_k, miss_w = float((k.double() - r).abs().max()), float((w.double() - r).abs().max())
+        if f32_ratio is not None:
+            tol = max(tol, min(f32_ratio * miss_w, TAIL_IAW_BWD_CEILING * scales[name]))
         entry = {"scale": scales[name], "kernel_vs_f64": miss_k, "plain_f32_vs_f64": miss_w, "tol": tol,
                  "ok": bool(torch.isfinite(k).all()) and miss_k <= tol}
         report[f"{label}:{name}"] = entry
@@ -623,7 +648,7 @@ def tail_bwd_misses(label, g, args, report):
 
 
 def two_species_tail_case(rng, device, n_angles=3, L=96):
-    """(g, the tail's fourteen arguments) of a small synthetic case for the branches of K6
+    """(g, the tail's fifteen arguments) of a small synthetic case for the branches of K6
     that the one-species main path does not run: two gradient points, two ion species
     (the Zbar coupling), flow and drift, ``n_angles`` angles over 55-65 degrees with a weight
     each, ``L`` wavelengths over 450-650 nm, some of them inside the ion-acoustic feature."""
@@ -642,10 +667,11 @@ def two_species_tail_case(rng, device, n_angles=3, L=96):
     sarad = t(np.deg2rad(np.linspace(55.0, 65.0, n_angles)))
     omgs = t(2.0e7 * np.pi * C / np.linspace(450.0, 650.0, L))
     xie = _kinematics_fields(sarad, omgs, ne, Te, lam, Va, ud)[-1]
-    lf = (-0.5 * xie**2 - 0.92).contiguous()  # a Maxwellian's log f_e at the phase velocities
+    lf = (-0.5 * xie**2).contiguous()  # a Maxwellian's log f_e at the phase velocities, less its peak's -0.92
     chi = (1.0 / (1.0 + xie**2) - 0.5).contiguous()  # smooth and O(1), like chi_R
     g = t(rng.standard_normal((B, L)))
-    return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t(np.resize([0.5, 0.3, 0.2], n_angles)), sarad, omgs)
+    lfc = t(np.full(B, -0.92))
+    return g, (lf, chi, ne, Te, lam, Va, ud, A, Z, Ti, fract, t(np.resize([0.5, 0.3, 0.2], n_angles)), sarad, omgs, lfc)
 
 
 # wavelength counts at the tail kernels' block edges (K6 owns 127 wavelengths a block, its thread 0 being
@@ -671,8 +697,7 @@ def check_tail_bwd(diag, params, rng):
     from tsadar_tpu_torch.ops import spectrum_tail
 
     ff = diag.model.electron_form_factor
-    inputs = ff._lookups_1v(params())
-    args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
+    args = inputs = ff.tail_args(params(), diag.model.weight)
     B, G, L, NA = inputs[0].shape
     S = inputs[7].shape[-1]
     blue, red, _ = diag.model._filter_band()
@@ -715,8 +740,7 @@ def check_tail_real(diag, params, rng):
     from tsadar_tpu_torch.ops import spectrum_tail
 
     ff = diag.model.electron_form_factor
-    inputs = ff._lookups_1v(params())
-    args = (*inputs, diag.model.weight, ff.sarad, ff.omgs)
+    args = inputs = ff.tail_args(params(), diag.model.weight)
     B, G, L, NA = inputs[0].shape
     blue, red, _ = diag.model._filter_band()
     lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
@@ -1569,7 +1593,7 @@ def real_data_grad_check(cfg, sa, all_data, check_pixels=REAL_CHECK_PIXELS, phas
     (float32, kernels) against the CPU plain path in float64, at grad_check's limits.  With ``f32_rule``
     the plain path also runs in float32 on the CPU, and a gradient that float32 itself misses by more
     than GRAD_TOL (one near its zero, a few thousandths of the largest) is held to GRAD_F32_RATIO times
-    that miss instead."""
+    that miss instead, and in any case to less than GRAD_ZERO_MISS (nearer float64 than zeros are)."""
     import torch
 
     from tsadar_tpu_torch import LossFunction, ThomsonParams
@@ -1594,8 +1618,10 @@ def real_data_grad_check(cfg, sa, all_data, check_pixels=REAL_CHECK_PIXELS, phas
     if f32_rule:
         f32 = miss(results["f32"][1])
         limits = {k: max(GRAD_TOL, GRAD_F32_RATIO * f32[k]) for k in g_ref}
-        extra = {"plain_f32_cpu_grad_err_of_max": f32, "grad_limits": limits, "grad_f32_ratio": GRAD_F32_RATIO}
-    ok = loss_err <= LOSS_TOL and all(report[k] <= limits[k] for k in report)
+        extra = {"plain_f32_cpu_grad_err_of_max": f32, "grad_limits": limits, "grad_f32_ratio": GRAD_F32_RATIO,
+                 "grad_zero_miss": GRAD_ZERO_MISS,
+                 "plain_f32_cpu_loss_rel_err": abs(results["f32"][0] - loss_ref) / abs(loss_ref)}
+    ok = loss_err <= LOSS_TOL and all(report[k] <= limits[k] and report[k] < GRAD_ZERO_MISS for k in report)
     emit({"phase": phase, "pixels": list(check_pixels), "loss": loss, "loss_f64_cpu": loss_ref,
           "loss_rel_err": loss_err, "loss_tol": LOSS_TOL, "grad_err_of_max_per_parameter": report, "grad_tol": GRAD_TOL,
           "grad_max_per_parameter": {k: float(g.abs().max()) for k, g in g_ref.items()}, **extra, "ok": ok})
@@ -1671,11 +1697,15 @@ def main_deck_grad_check():
         real_data_grad_check(cfg, sa, all_data, pixels, f"main_deck_grad_check_b{len(pixels)}", f32_rule=True)
 
 
-def fit_launches_ok(launches, nfev, forwards):
-    """Every backward kernel of the 1V path launched once an evaluation, every forward kernel that often
-    plus ``forwards`` forwards of the postprocess, nothing else."""
+def deck_fit_launches(launches, nfev, forwards, features=1, table_bwd=True):
+    """Every backward kernel of the 1V path launched once an evaluation, every forward kernel ``features``
+    times (both features are computed where a deck loads both) an evaluation and a forward of the
+    postprocess, nothing else: (ok, want).  Without ``table_bwd`` (a deck whose EDF is not fitted) the tables'
+    cotangents (K2, K4, K9's transposed mode) have nothing to carry and do not run."""
     bwd = ("lin_lookup_bwd", "cubic_lookup_bwd", "spectrum_tail_bwd", "pv_tables_bwd")
-    want = {k: (nfev if k in bwd else nfev + forwards) if k in REAL_FIT_KERNELS else 0 for k in launches}
+    table = ("lin_lookup_bwd", "cubic_lookup_bwd", "pv_tables_bwd")
+    want = {k: (nfev * int(table_bwd or k not in table) if k in bwd else features * (nfev + forwards))
+            if k in REAL_FIT_KERNELS else 0 for k in launches}
     return launches == want and nfev > 0, want
 
 
@@ -1695,7 +1725,7 @@ def main_deck_fit(wrappers, smi):
     launches = read_and_zero(wrappers)
     scipy = record["scipy"]
     nfev = sum(scipy["nfev"])
-    launches_ok, want = fit_launches_ok(launches, nfev, forwards=1)  # the postprocess's array loss: one forward
+    launches_ok, want = deck_fit_launches(launches, nfev, forwards=1)  # the postprocess's array loss: one forward
     fitted = {k: [float(v) for v in final[k]] for k in MAIN_DECK_TRUTH}
     gates = {k: abs(fitted[k][0] - val) / val <= tol for k, (val, tol) in MAIN_DECK_TRUTH.items()}
     pins = {k: [abs(g - w) / w for g, w in zip(fitted[k], MAIN_DECK_PINS[k])] for k in MAIN_DECK_PINS}
@@ -1742,7 +1772,7 @@ def main_deck_postprocess(wrappers, smi, device=None):
     launches = read_and_zero(wrappers)
     nfev_refit = sum(record["refit_scipy"]["nfev"]) if "refit_scipy" in record else 0
     # forwards: the refits' recalculation, the refit's own array loss, the final recalculation
-    launches_ok, want = fit_launches_ok(launches, nfev_refit, forwards=3)
+    launches_ok, want = deck_fit_launches(launches, nfev_refit, forwards=3)
     refits = record.get("refits", [])
     sigmas = {k: [float(x) for x in v] for k, v in final["sigmas"].items()}
     sigma_ok = len(sigmas) == 6 and all(np.isfinite(v).all() and np.all(np.abs(v) > 0) and len(v) == 2 for v in sigmas.values())
@@ -1758,6 +1788,328 @@ def main_deck_postprocess(wrappers, smi, device=None):
     if not ok:
         raise RuntimeError(f"main_deck_postprocess: launches {launches} (want {want}), refits {refits}, sigmas {sigmas}")
     return final, record
+
+
+# ---------------------------------------------------------------- the rest of the 1V fitter
+
+LBFGS_SEED = 7  # tests/test_inverse/test_1d_random.py's device L-BFGS setup
+LBFGS_STEPS = 150
+LBFGS_LOSS_CEILING = 1e-4
+LBFGS_RTOL = 0.1  # every active parameter against the truth (that test's _assert_recovered)
+LBFGS_ACTIVE = {"electron": ("Te", "ne", "m"), "general": ("amp1", "amp2", "lam")}
+IAW_PINS = {"Te_electron": ([0.7497, 0.8844], 5e-2), "Va_general": ([-1.885, -1.817], 5e-2),
+            "amp3_general": ([0.9707, 0.9590], 5e-2), "ud_general": ([-2.477, -0.987], 2e-1)}  # test_1d_iaw_data.py
+IAW_LOSS_CEILING = 1e-3
+SHOT_111411_PINS = {"amp1_general": [0.8623, 0.8476], "amp2_general": [1.0648, 0.9956], "lam_general": [525.40, 525.47],
+                    "Te_electron": [0.7363, 0.7381], "ne_electron": [0.5371, 0.5337], "m_electron": [2.414, 2.416]}
+SHOT_111411_RTOL = {"lam_general": 5e-3}  # the rest 3e-2 (test_1d_data_111411.py)
+SHOT_111411_LOSS_CEILING = 5e-3
+IMAGING_PINS = {"Te_electron": [0.413, 0.417], "ne_electron": [0.170, 0.173]}  # test_imaging_data.py, rtol 5e-2
+IMAGING_LOSS_CEILING = 2.5e-2
+# K5 at the IAW deck's ion window, where the whole window is the ion-acoustic feature: at most TAIL_EPW_TOL of
+# each lineout's peak, or TAIL_IAW_RATIO times the float32 twin's own miss where float32 itself misses by more
+ION_TAIL_TOL = TAIL_EPW_TOL
+
+
+def load_1d_deck():
+    """``tests/configs/1d-{defaults,inputs}.yaml`` merged, with the forward ranges set (the synthetic 1D deck)."""
+    from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
+
+    decks = [yaml.safe_load((ROOT / "tests" / "configs" / f"1d-{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+    return set_forward_ranges(merge_configs(*decks))
+
+
+def perturb(rng, params):
+    """test_1d_random.py's draw of the six active values."""
+    params["electron"]["fe"]["params"]["m"]["val"] = float(rng.uniform(2.0, 3.5))
+    params["electron"]["Te"]["val"] = float(rng.uniform(0.5, 1.5))
+    params["electron"]["ne"]["val"] = float(rng.uniform(0.1, 0.7))
+    params["general"]["amp1"]["val"] = float(rng.uniform(0.5, 2.5))
+    params["general"]["amp2"]["val"] = float(rng.uniform(0.5, 2.5))
+    params["general"]["lam"]["val"] = float(rng.uniform(523, 527))
+    return params
+
+
+def lbfgs_fit(wrappers, smi, device=None):
+    """``one_d_loop`` with ``method: lbfgs`` (the device L-BFGS) on test_1d_random.py's seed-7 setup: the 1D
+    deck's spectrum at a drawn truth (the CPU float64 forward) fitted from a second draw, LBFGS_STEPS steps;
+    the value at the last step under LBFGS_LOSS_CEILING and every active parameter within LBFGS_RTOL of the
+    truth; K1-K6 and both K9 modes once an evaluation."""
+    import torch
+
+    from tsadar_tpu_torch import ThomsonParams, ThomsonScatteringDiagnostic, get_scattering_angles
+    from tsadar_tpu_torch.inverse.loops import one_d_loop
+
+    cfg = load_1d_deck()
+    sas = get_scattering_angles(cfg)
+    rng = np.random.default_rng(LBFGS_SEED)
+    cfg["parameters"] = perturb(rng, cfg["parameters"])
+    one = {"e_amps": np.ones((1, 1)), "i_amps": np.ones((1, 1)), "noise_e": np.zeros((1, 1)), "noise_i": np.zeros((1, 1))}
+    truth = ThomsonParams.create(cfg["parameters"], 1, activate=True, device="cpu")
+    with torch.no_grad():
+        ThryE, ThryI, _, _ = ThomsonScatteringDiagnostic(cfg, sas, device="cpu")(truth, one)
+        truth = {g: {k: float(v.reshape(-1)[0]) for k, v in truth.get_unnormed_params()[g].items() if k in names}
+                 for g, names in LBFGS_ACTIVE.items()}
+    cfg["parameters"] = perturb(rng, cfg["parameters"])
+    cfg["optimizer"].update(method="lbfgs", num_epochs=LBFGS_STEPS, batch_size=1)
+    all_data = {"e_data": ThryE.numpy(), "i_data": ThryI.numpy(), "e_amps": one["e_amps"], "i_amps": one["i_amps"],
+                "noiseE": one["noise_e"], "noiseI": one["noise_i"]}
+    record = {}
+    read_and_zero(wrappers)
+    t0 = time.perf_counter()
+    weights, loss, _ = one_d_loop(cfg, all_data, sas, np.arange(1), 1, device=device, record=record)
+    if device is None:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_and_zero(wrappers)
+    evaluations = sum(record["evaluations"])
+    fitted = {g: {k: float(v.reshape(-1)[0]) for k, v in weights[0].get_unnormed_params()[g].items() if k in names}
+              for g, names in LBFGS_ACTIVE.items()}
+    rel = {f"{g}.{k}": abs(fitted[g][k] - v) / abs(v) for g, d in truth.items() for k, v in d.items()}
+    want = {k: evaluations * int(k in REAL_FIT_KERNELS) for k in launches}
+    gates = {"loss": loss < LBFGS_LOSS_CEILING, "recovered": all(r <= LBFGS_RTOL for r in rel.values()),
+             "finite": bool(np.isfinite(record["losses"]).all()), "launches": launches == want}
+    ok = all(gates.values())
+    emit({"phase": "lbfgs_fit", "seed": LBFGS_SEED, "steps": LBFGS_STEPS, "loss": loss, "loss_ceiling": LBFGS_LOSS_CEILING,
+          "truth": truth, "fitted": fitted, "rel_err": rel, "rtol": LBFGS_RTOL, "gates": gates, "evaluations": evaluations,
+          "evaluations_per_step": evaluations / LBFGS_STEPS, "ms_per_step": 1e3 * sum(record["seconds"]) / LBFGS_STEPS,
+          "ms_per_evaluation": 1e3 * sum(record["seconds"]) / evaluations, "seconds": seconds,
+          "launches": launches, "launches_per_evaluation": {k: v / evaluations for k, v in launches.items() if v},
+          "evaluations_by_step": record["evaluations"], "stepsizes": record["stepsizes"],
+          "unit_steps": sum(s == 1.0 for s in record["stepsizes"]),
+          "losses_every_10th": record["losses"][::10], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"lbfgs_fit: gates {gates}, loss {loss:.3e}, relative errors {rel}, launches {launches}")
+    return launches
+
+
+def load_iaw_deck(**other):
+    """``configs/1d/{defaults,inputs}.yaml`` set as test_1d_iaw_data.py sets them: ps lineouts 535:735:100,
+    ``other`` as given; the raw-data visualizer off."""
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    decks = [yaml.safe_load((ROOT / "configs" / "1d" / f"{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+    cfg = merge_configs(*decks)
+    cfg["data"]["lineouts"].update({"start": 535, "end": 735, "skip": 100})
+    cfg["data"]["launch_data_visualizer"] = False
+    cfg["other"].update(other)
+    return cfg
+
+
+def ion_tail_misses(label, args, report):
+    """K5 against its float64 twin on ``args`` over the whole (ion) window: at most ION_TAIL_TOL of each
+    lineout's peak, or TAIL_IAW_RATIO times the float32 twin's own miss of that peak where it is larger."""
+    import torch
+
+    from tsadar_tpu_torch.ops import spectrum_tail
+
+    got, want = spectrum_tail.spectrum_tail_fwd(*args), spectrum_tail.plain(*args)
+    ref = spectrum_tail.plain(*(a.double() for a in args))
+    peak = ref.abs().amax(1)
+    miss = lambda x: float(((x.double() - ref).abs().amax(1) / peak).max())  # noqa: E731
+    kernel, plain32 = miss(got), miss(want)
+    tol = max(ION_TAIL_TOL, TAIL_IAW_RATIO * plain32)
+    entry = {"operands": list(args[0].shape), "peak": [float(p) for p in peak], "kernel_vs_f64_of_row_peak": kernel,
+             "plain_f32_vs_f64_of_row_peak": plain32, "tol": tol,
+             "ok": bool(torch.isfinite(got).all()) and kernel <= tol}
+    report[label] = entry
+    return entry["ok"], float((got - want).abs().max())
+
+
+def check_tail_ion_window(loss_fn, rng):
+    """K5 and K6 on the IAW deck's ion-window operands (its two lineouts at test_1d_iaw_data.py's fitted
+    Te, Va, ud and amp3): K5 against its float64 twin (``ion_tail_misses``), K6 per output against its float64
+    twin (``tail_bwd_misses``) on a seeded cotangent over the deck's IAW fit windows, as the loss makes it;
+    where the float32 twin itself misses by more than the limits, each may miss by TAIL_IAW_RATIO times that
+    (K6's outputs up to TAIL_IAW_BWD_CEILING of their scale)."""
+    import torch
+
+    from tsadar_tpu_torch import ThomsonParams
+    from tsadar_tpu_torch.core.params.distributions import inv_act
+    from tsadar_tpu_torch.core.physics.constants import C
+
+    cfg = loss_fn.cfg
+    diag = loss_fn.ts_diag
+    params = ThomsonParams.create(cfg["parameters"], 2, activate=True, device=diag.device, dtype=diag.dtype)
+    with torch.no_grad():
+        for key, (vals, _) in IAW_PINS.items():  # each lineout at its own pin
+            name, group = key.rsplit("_", 1)
+            g = params.electron.params if group == "electron" else params.general.params
+            x = (np.asarray(vals) - g.shifts[name]) / g.scales[name]
+            g.normed[name].copy_(torch.as_tensor(inv_act(x, g.activated[name])))
+        ff = diag.model.ion_form_factor
+        args = ff.tail_args(params(), diag.model.weight)
+        fr = cfg["data"]["fit_rng"]
+        lam = 2.0 * math.pi * C / ff.omgs.double() * 1e7
+        window = ((lam > fr["iaw_min"]) & (lam < fr["iaw_cf_min"])) | ((lam > fr["iaw_cf_max"]) & (lam < fr["iaw_max"]))
+        B, G, L, NA = args[0].shape
+        noise = torch.tensor(rng.standard_normal((B, L)), dtype=torch.float32, device=ff.omgs.device)
+        noise = torch.where(window, noise, 0.0)
+        fwd, bwd = {}, {}
+        fwd_ok, fwd_err = ion_tail_misses("iaw_deck_ion_window", args, fwd)
+        bwd_ok, bwd_err = tail_bwd_misses("iaw_deck_ion_window", noise, args, bwd, f32_ratio=TAIL_IAW_RATIO)
+    lam_range = [float(lam.min()), float(lam.max())]
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_fwd", "shapes": "iaw_deck_ion_window", "window_nm": lam_range,
+          "Va_ud": {k: IAW_PINS[k][0] for k in ("Va_general", "ud_general")}, "max_abs_err": fwd_err, "cases": fwd, "ok": fwd_ok})
+    emit({"phase": "kernel_check", "kernel": "spectrum_tail_bwd", "shapes": "iaw_deck_ion_window", "window_nm": lam_range,
+          "fit_window_wavelengths": int(window.sum()), "max_abs_err": bwd_err, "per_output": bwd, "ok": bwd_ok})
+    if not (fwd_ok and bwd_ok):
+        raise RuntimeError(f"the tail kernels at the IAW deck's ion window miss their float64 twins: {fwd}, "
+                           f"{ {n: r for n, r in bwd.items() if not r['ok']} }")
+
+
+def iaw_deck_grad_check():
+    """The IAW deck's loss (its IAW arm alone) and gradient (Te, Va, ud, amp3) at its two lineouts, the card
+    against the CPU float64 plain path at grad_check's limits, with main_deck_grad_check_b1's float32 rule
+    for the gradients (the CPU float32 plain path misses Te's and Va's by ~0.6 and ~0.5 of their largest
+    entries: the lookups' query gradient from the Landau term cancels at the ion window); then the tail
+    kernels at its ion window (``check_tail_ion_window``), where K6's Te and Va cotangents are held closely."""
+    from tsadar_tpu_torch import LossFunction
+    from tsadar_tpu_torch.inverse.fitter import _lineout_selection
+    from tsadar_tpu_torch.utils.process.prepare import prepare_data
+
+    cfg = _lineout_selection(load_iaw_deck())
+    all_data, sa, _ = prepare_data(cfg, cfg["data"]["shotnum"])
+    real_data_grad_check(cfg, sa, all_data, tuple(cfg["data"]["lineouts"]["val"]), "iaw_deck_grad_check", f32_rule=True)
+    check_tail_ion_window(LossFunction(cfg, sa, real_batch(all_data)), np.random.default_rng(SEED + 9))
+
+
+def deck_fit(cfg, wrappers):
+    """``fitter.fit`` on ``cfg`` on the card: (final parameters, loss, record, launches, seconds)."""
+    import torch
+
+    from tsadar_tpu_torch.inverse import fitter
+
+    record = {}
+    read_and_zero(wrappers)
+    t0 = time.perf_counter()
+    final, loss = fitter.fit(cfg, record=record)
+    torch.cuda.synchronize()
+    return final, loss, record, read_and_zero(wrappers), time.perf_counter() - t0
+
+
+def pin_misses(final, pins):
+    return {k: [float(abs(g - w) / abs(w)) for g, w in zip(final[k][:2], vals)] for k, vals in pins.items()}
+
+
+def iaw_deck_fit(wrappers, smi):
+    """``fitter.fit`` on the IAW deck with ``calc_sigmas``, ``refit`` and ``refit_thresh`` 1e-9 (module 3 of
+    the L-BFGS-B deck fits): test_1d_iaw_data.py's pins, loss, the refit of lineout 1 in (batch 0, slot 1),
+    all 8 sigmas finite and non-zero, lineout 0's positive; the seconds of the fit, the refit and the Hessian."""
+    final, loss, record, launches, seconds = deck_fit(load_iaw_deck(calc_sigmas=True, refit=True, refit_thresh=1e-9),
+                                                           wrappers)
+    nfev = sum(record["scipy"]["nfev"]) + sum(record.get("refit_scipy", {}).get("nfev", []))
+    # forwards of the postprocess: the refits' recalculation, the refit's own array loss, the final recalculation
+    launches_ok, want = deck_fit_launches(launches, nfev, forwards=3, features=2, table_bwd=False)
+    misses = pin_misses(final, {k: v for k, (v, _) in IAW_PINS.items()})
+    sig = np.stack([final["sigmas"][k] for k in ("electron.Te", "general.Va", "general.amp3", "general.ud")], axis=1)
+    refits = record.get("refits", [])
+    gates = {"pins": all(m <= IAW_PINS[k][1] for k, v in misses.items() for m in v), "loss": loss < IAW_LOSS_CEILING,
+             "refit_slot": [(r["lineout"], r["batch"], r["slot"]) for r in refits] == [(1, 0, 1)],
+             "sigmas": sig.shape == (2, 4) and bool(np.isfinite(sig).all() and (sig != 0).all()),
+             "lineout0_local_optimum": bool((sig[0] > 0).all()), "launches": launches_ok}
+    ok = all(gates.values())
+    emit({"phase": "iaw_deck_fit", "lineouts": [int(p) for p in final["lineout pixel"]], "loss": loss,
+          "fitted": {k: [float(x) for x in final[k]] for k in IAW_PINS}, "pins_and_rtol": IAW_PINS, "pin_misses": misses,
+          "sigmas": {k: [float(x) for x in v] for k, v in final["sigmas"].items()}, "refits": refits, "gates": gates,
+          "scipy": record["scipy"], "refit_scipy": record.get("refit_scipy"), "launches": launches, "launches_want": want,
+          "seconds": seconds, "stage_seconds": {"setup": record["setup_seconds"], "fit": record["fit_seconds"],
+                                                 "refit": record["refit_seconds"], "hessian_cpu_f64": record["recalc_hessian_seconds"],
+                                                 "postprocess": record["postprocess_seconds"]},
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"iaw_deck_fit: gates {gates}, misses {misses}, sigmas {sig}, launches {launches} (want {want})")
+    return launches
+
+
+def shot_111411_fit(wrappers, smi):
+    """``fitter.fit`` on the main deck with test_1d_data_111411.py's changes (shot 111411; Te 0.8, ne 0.5, lam
+    526.5): its pins, amplitudes inside (0.1, 3.0), the two lineouts agreeing to 5 % on Te and ne, loss."""
+    cfg = load_main_deck()
+    cfg["data"]["shotnum"] = 111411
+    for group, name, val in (("electron", "Te", 0.8), ("electron", "ne", 0.5), ("general", "lam", 526.5)):
+        cfg["parameters"][group][name]["val"] = val
+    final, loss, record, launches, seconds = deck_fit(cfg, wrappers)
+    launches_ok, want = deck_fit_launches(launches, sum(record["scipy"]["nfev"]), forwards=1)
+    misses = pin_misses(final, SHOT_111411_PINS)
+    Te, ne = final["Te_electron"][:2], final["ne_electron"][:2]
+    gates = {"pins": all(m <= SHOT_111411_RTOL.get(k, 3e-2) for k, v in misses.items() for m in v),
+             "amplitudes": all(0.1 < a < 3.0 for k in ("amp1_general", "amp2_general") for a in final[k][:2]),
+             "Te_agree": bool(abs(Te[0] - Te[1]) / Te.mean() < 0.05), "ne_agree": bool(abs(ne[0] - ne[1]) / ne.mean() < 0.05),
+             "loss": float(np.sum(loss)) < SHOT_111411_LOSS_CEILING, "launches": launches_ok}
+    ok = all(gates.values())
+    emit({"phase": "shot_111411_fit", "loss": loss, "fitted": {k: [float(x) for x in final[k]] for k in SHOT_111411_PINS},
+          "pin_misses": misses, "gates": gates, "scipy": record["scipy"], "launches": launches, "launches_want": want,
+          "seconds": seconds, "stage_seconds": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")},
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"shot_111411_fit: gates {gates}, misses {misses}, launches {launches} (want {want})")
+    return launches
+
+
+def imaging_112059_fit(wrappers, smi):
+    """``fitter.fit`` on the main deck with test_imaging_data.py's changes (shot 112059, EPW_CCD; pixels
+    500:510:5, adam for 30 epochs, batch 2, ``detailed_breakdown`` on): its loss and pins, and the record's
+    breakdown (``spec_comps``, ``IRF``, ``detailed_axis``) finite for every batch and both features."""
+    cfg = load_main_deck()
+    cfg["data"]["shotnum"] = 112059
+    cfg["data"]["lineouts"].update({"type": "pixel", "start": 500, "end": 510, "skip": 5})
+    cfg["optimizer"].update({"method": "adam", "num_epochs": 30, "batch_size": 2})
+    cfg.setdefault("plotting", {})["detailed_breakdown"] = True
+    final, loss, record, launches, seconds = deck_fit(cfg, wrappers)
+    steps = cfg["optimizer"]["num_epochs"]
+    # per step K1-K6 and both K9 modes; the postprocess's array loss one forward; the breakdown one unreduced
+    # forward (K1, K3, K9: its tail is the plain one)
+    want = {k: (steps + (1 if k in FORWARD_KERNELS else 0) + (1 if k in BREAKDOWN_KERNELS else 0)) * int(k in REAL_FIT_KERNELS)
+            for k in launches}
+    fits = record["fits"]
+    batches = [tuple(int(i) for i in b) for b in np.reshape(np.arange(len(final["Te_electron"])), (-1, 2))]
+    breakdown = {f: all(b in fits[f]["spec_comps"] and bool(np.isfinite(fits[f]["spec_comps"][b]).all())
+                        and bool(np.isfinite(fits[f]["detailed_axis"][b]).all()) for b in batches)
+                 and bool(np.isfinite(fits[f]["IRF"]).all()) for f in ("ele", "ion")}
+    misses = pin_misses(final, IMAGING_PINS)
+    gates = {"loss": float(np.asarray(loss).ravel()[0]) < IMAGING_LOSS_CEILING,
+             "pins": all(m <= 5e-2 for v in misses.values() for m in v), "breakdown": all(breakdown.values()),
+             "launches": launches == want}
+    ok = all(gates.values())
+    emit({"phase": "imaging_112059_fit", "loss": loss, "fitted": {k: [float(x) for x in final[k]] for k in IMAGING_PINS},
+          "pin_misses": misses, "gates": gates, "breakdown_finite": breakdown,
+          "spec_comps_shapes": {f: {str(b): list(np.shape(v)) for b, v in fits[f]["spec_comps"].items()} for f in ("ele", "ion")},
+          "launches": launches, "launches_want": want, "seconds": seconds,
+          "stage_seconds": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")}, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"imaging_112059_fit: gates {gates}, misses {misses}, launches {launches} (want {want})")
+    return launches
+
+
+def arbitrary_1v():
+    """The main deck's 2 real lineouts with ``fe.type: arbitrary`` (``init_m`` 3.0; its pointwise EDF active):
+    the forward on the card against the CPU float64 path (FWD_TOL of peak), then loss and gradient
+    (``real_data_grad_check``'s limits and float32 rule)."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.inverse.fitter import _lineout_selection
+    from tsadar_tpu_torch.utils.process.prepare import prepare_data
+
+    cfg = _lineout_selection(load_main_deck())
+    cfg["parameters"]["electron"]["fe"]["type"] = "arbitrary"
+    cfg["parameters"]["electron"]["fe"]["params"]["init_m"] = 3.0
+    all_data, sa, _ = prepare_data(cfg, cfg["data"]["shotnum"])
+    batch = real_batch(all_data)
+    spectra = {}
+    for device in ("cpu", "cuda"):
+        loss_fn = LossFunction(cfg, sa, batch, device=device)
+        params = ThomsonParams.create(cfg["parameters"], 2, activate=True, device=device, dtype=loss_fn.ts_diag.dtype)
+        with torch.no_grad():
+            spectra[device] = loss_fn.ts_diag(params, batch)[0].double().cpu()
+    err = float((spectra["cuda"] - spectra["cpu"]).abs().max() / spectra["cpu"].abs().max())
+    ok = err <= FWD_TOL and bool(torch.isfinite(spectra["cuda"]).all())
+    emit({"phase": "arbitrary_1v_forward", "pixels": list(cfg["data"]["lineouts"]["val"]), "nvx": cfg["parameters"]["electron"]["fe"]["nvx"],
+          "max_err_of_peak": err, "tol": FWD_TOL, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arbitrary_1v: the forward on the card misses the CPU float64 path by {err:.3e} of peak")
+    real_data_grad_check(cfg, sa, all_data, tuple(cfg["data"]["lineouts"]["val"]), "arbitrary_1v_grad_check", f32_rule=True)
 
 
 # (source, the TPU kernel it replaces, which of the repo's ten TPU kernels); K9's transposed mode and
@@ -1780,6 +2132,7 @@ KERNELS = {
 # the port's device functions by name (csrc/*.cu), as the profiler lists them
 PORT_KERNEL_NAMES = ("lin_lookup", "cubic_lookup", "spectrum_tail", "pv_tables", "sum_shares", "chi_bilinear")
 FORWARD_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "spectrum_tail_fwd", "pv_tables_fwd")
+BREAKDOWN_KERNELS = ("lin_lookup_fwd", "cubic_lookup_fwd", "pv_tables_fwd")  # the unreduced 1V spectrum's
 ARTS_FWD_KERNELS = ("chi_bilinear_pack", "chi_bilinear_fwd")
 ARTS_KERNELS = ARTS_FWD_KERNELS + ("chi_bilinear_bwd",)
 PADDED_KERNELS = ("lin_lookup_meta_fwd", "lin_lookup_meta_bwd")
@@ -1886,6 +2239,15 @@ def main():
     main_fit_launches = main_deck_fit(wrappers, smi)
     main_deck_postprocess(wrappers, smi)
 
+    # 4c. this slice's paths: the device L-BFGS, the IAW deck (its ion window's tail kernels too), shots 111411
+    # and 112059 (the latter with the spectrum breakdown) through fitter.fit, and the pointwise 1V EDF
+    path_launches = {"lbfgs_fit": lbfgs_fit(wrappers, smi)}
+    iaw_deck_grad_check()
+    path_launches["iaw_deck_fit"] = iaw_deck_fit(wrappers, smi)
+    path_launches["shot_111411_fit"] = shot_111411_fit(wrappers, smi)
+    path_launches["imaging_112059_fit"] = imaging_112059_fit(wrappers, smi)
+    arbitrary_1v()
+
     with torch.no_grad():
         # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels
         read_and_zero(wrappers)
@@ -1983,6 +2345,7 @@ def main():
          "launches": launches_of(k)[0], "fit_launches": launches_of(k)[1],
          "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2] if launches_of(k)[2] else 0.0,
          "real_data_fit_launches": real_fit_launches[k], "main_deck_fit_launches": main_fit_launches[k],
+         **{f"{path}_launches": counts[k] for path, counts in path_launches.items()},
          **rows[k], **({"ptxas": ptxas[k]} if k in ptxas else {})}
         for k in wrappers
     ]})

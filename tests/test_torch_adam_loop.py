@@ -16,8 +16,8 @@ seeded data batch:
   trajectories, whose lam gradients agree to 4e-10 at the start, part by a
   factor ~10 per step (1e-7 in the loss after ten), which says nothing about
   either loop;
-* ``one_d_loop`` over two batches with the sequential warm start, and its
-  refusal of the device L-BFGS, which is not ported yet.
+* ``one_d_loop`` over two batches with the sequential warm start, and one
+  step of each L-BFGS (scipy's, and the device L-BFGS against the JAX loop).
 """
 
 import copy
@@ -186,16 +186,22 @@ def test_one_d_loop_runs_batches_with_warm_start():
 
 @pytest.mark.parametrize("method", ["l-bfgs-b", "lbfgs"])
 def test_one_d_loop_refuses_unported_optimizers(method):
-    """``lbfgs`` (the device L-BFGS) is not ported yet and raises, naming its ROADMAP item; ``l-bfgs-b`` (scipy
-    on the host), which raised here until it was ported, now runs (``tests/test_torch_scipy_loop.py``)."""
+    """Both optimizers that raised here until they were ported now run: ``l-bfgs-b`` (scipy on the host,
+    ``tests/test_torch_scipy_loop.py``) and ``lbfgs`` (the device L-BFGS, ``tests/test_torch_lbfgs.py``), whose
+    one step lands where the JAX package's ``_1d_device_lbfgs_loop_`` does (1e-8 relative)."""
     cfg = ge._small_config(2)
     cfg["optimizer"].update(method=method, num_epochs=1)
     data = ge._make_batch(2)
     all_data = {"e_data": data["e_data"], "i_data": data["i_data"], "e_amps": data["e_amps"], "i_amps": data["i_amps"],
                 "noiseE": data["noise_e"], "noiseI": data["noise_i"]}
+    weights, overall, _ = one_d_loop(cfg, all_data, port.get_scattering_angles(cfg), np.arange(2), 1, device="cpu")
+    assert len(weights) == 1 and np.isfinite(overall)
     if method == "lbfgs":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            one_d_loop(cfg, all_data, port.get_scattering_angles(cfg), np.arange(2), 1, device="cpu")
-    else:
-        weights, overall, _ = one_d_loop(cfg, all_data, port.get_scattering_angles(cfg), np.arange(2), 1, device="cpu")
-        assert len(weights) == 1 and np.isfinite(overall)
+        from tsadar_tpu.inverse.loops import _1d_device_lbfgs_loop_ as jax_lbfgs_loop
+
+        want_loss, want = jax_lbfgs_loop(cfg, JaxLoss(cfg, jax_angles(cfg), data), None, data)
+        np.testing.assert_allclose(overall, float(want_loss), rtol=1e-8)
+        got, want = _physical(weights[0]), {f"{g}.{k}": np.asarray(v) for g, d in want.get_unnormed_params().items()
+                                            for k, v in d.items()}
+        for k in ("electron.Te", "electron.ne", "electron.m", "general.amp1", "general.amp2", "general.lam"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-8, err_msg=k)

@@ -13,8 +13,8 @@ they cost tier-1 seconds and say nothing of the fit.
 ``tests/test_inverse/test_1d_data.py`` is) runs the deck's full 1000
 iterations in float64 and holds the result to that test's upstream-validated
 values and tolerances and its self-validated pins of both lineouts.  What
-``fit`` does not take yet (``plotting.detailed_breakdown``, the angular
-spectypes) raises before any data is read.
+``fit`` does not take yet (the angular spectypes) raises before any data is
+read; ``plotting.detailed_breakdown`` runs.
 """
 
 from pathlib import Path
@@ -82,12 +82,22 @@ def test_fit_main_deck_as_written():
 
 @pytest.mark.parametrize("option", ["detailed_breakdown", "angular"])
 def test_fit_refuses_what_is_not_ported_up_front(option):
-    """``plotting.detailed_breakdown`` (spectrum_breakdown) and the angular postprocess raise before any data is read."""
+    """The angular postprocess raises before any data is read; ``plotting.detailed_breakdown``, which raised here
+    until ``spectrum_breakdown`` was ported, now runs: the record's fitted spectra carry the breakdown of the
+    deck's one batch (``tests/test_torch_imaging_112059.py`` holds it to JAX's)."""
     cfg = _deck()
     if option == "detailed_breakdown":
         cfg["plotting"]["detailed_breakdown"] = True
-    else:
-        cfg["other"]["extraoptions"]["spectype"] = "angular_full"
+        cfg["optimizer"]["num_epochs"] = 1
+        record = {}
+        fitter.fit(cfg, device="cpu", record=record)
+        ele = record["fits"]["ele"]
+        assert list(ele["spec_comps"]) == [(0, 1)] and ele["spec_comps"][(0, 1)].shape == (2, 1, 5120, 10)
+        assert ele["IRF"].shape == (2, 1024) and ele["detailed_axis"][(0, 1)].shape == (2, 5120)
+        assert all(np.isfinite(a).all() for a in (ele["spec_comps"][(0, 1)], ele["IRF"], ele["detailed_axis"][(0, 1)]))
+        assert np.abs(ele["IRF"]).max() > 0.0
+        return
+    cfg["other"]["extraoptions"]["spectype"] = "angular_full"
     cfg["data"]["shotnum"] = -1  # no such shot: a fit that read data would fail otherwise
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fitter.fit(cfg, device="cpu")

@@ -104,7 +104,7 @@ def _one_species(args):
 
 
 def _tail_case(label):
-    """(g, the tail's fourteen arguments) of ``chip_smoke.two_species_tail_case`` at the label's angles and
+    """(g, the tail's fifteen arguments) of ``chip_smoke.two_species_tail_case`` at the label's angles and
     wavelengths: two species, two gradient points, flow and drift, some wavelengths in the ion-acoustic band."""
     angles, wavelengths = {"two_species": (3, 96), "one_species_A10_L255": (10, 255), "A70_L300": (70, 300),
                            "A13_L2": (13, 2), "A3_L1": (3, 1)}[label]

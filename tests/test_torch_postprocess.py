@@ -22,7 +22,10 @@ with its active parameters spread per lineout by a seeded draw, float64:
   ``save_sigmas_params`` names the columns in ``get_fitted_params``' order
   (lam, amp1, amp2) while ``get_sigmas`` gives them in the ravel order (amp1,
   amp2, lam): its general.* sigma names are permuted; the port's are not.
-* ``plotting.detailed_breakdown`` and the angular spectype raise up front.
+* ``plotting.detailed_breakdown`` over two batches of two: each batch's
+  component stacks and raw axes (the ion stack to 1e-8 of its peak: see
+  ``tests/test_torch_detailed_spectrum.py``) and the instrument-only spectra
+  as the JAX package files them; the angular spectype raises up front.
 * ``interp.plain_forms()``: the lookups, the padded lookup, the chi tables'
   lookup and the PV tables give the same values with no ``autograd.Function``
   in their graph, and a second derivative (the spectrum tail's route is what
@@ -128,10 +131,27 @@ def test_recalculate_with_chosen_weights_matches_jax():
 
 
 def test_unported_options_raise_up_front():
-    cfg = ge._small_config(2)
+    """The angular spectype raises up front; ``plotting.detailed_breakdown``, which raised here until it was
+    ported, runs: each batch's breakdown (component stacks, instrument-only spectra, raw axes) as JAX files it."""
+    n, bs = 4, 2
+    cfg = ge._small_config(bs)
     cfg["plotting"] = {"detailed_breakdown": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppp.postprocess(cfg, np.arange(2), None, None, None, None, None)
+    all_data = _all_data(n)
+    weights = [_spread(cfg, bs, seed=s) for s in (5, 6)]
+    batch = {k: v[:bs] for k, v in ge._make_batch(n).items()}
+    want = jpp.recalculate_with_chosen_weights(cfg, None, np.arange(n), all_data, JaxLoss(cfg, jax_angles(cfg), batch), False,
+                                               [w[0] for w in weights])[3]
+    pl = port.LossFunction(cfg, port.get_scattering_angles(cfg), batch, device="cpu")
+    got = ppp.recalculate_with_chosen_weights(cfg, None, np.arange(n), all_data, pl, False, [w[1] for w in weights])[3]
+    for feature in ("ele", "ion"):
+        assert list(got[feature]["spec_comps"]) == list(want[feature]["spec_comps"]) == [(0, 1), (2, 3)]
+        for key in ("spec_comps", "detailed_axis"):
+            for inds, w in want[feature][key].items():
+                g = got[feature][key][inds]
+                assert g.shape == w.shape and np.isfinite(g).all(), (feature, key)
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-8 * np.abs(w).max(), err_msg=f"{feature} {key}")
+        np.testing.assert_allclose(got[feature]["IRF"], want[feature]["IRF"], rtol=0,
+                                   atol=1e-10 * np.abs(want[feature]["IRF"]).max(), err_msg=feature)
     cfg["plotting"]["detailed_breakdown"] = False
     cfg["other"]["extraoptions"]["spectype"] = "angular_full"
     with pytest.raises(NotImplementedError, match="ROADMAP"):

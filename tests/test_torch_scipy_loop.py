@@ -16,7 +16,8 @@ JAX forward at the truth, one lineout):
   the record carries scipy's message, ``nit`` and ``nfev``;
 * ``one_d_loop`` over two batches with the sequential warm start: a fresh
   loss function per batch (the last one returned), the second batch starting
-  from the first one's result; ``method: lbfgs`` still raises.
+  from the first one's result; ``method: lbfgs`` (the device L-BFGS) runs the
+  same two batches with one loss function.
 """
 
 import copy
@@ -108,6 +109,8 @@ def test_one_d_loop_scipy_two_batches_with_warm_start():
     te = lambda w: w.electron.params.normed["Te"].detach()  # noqa: E731
     torch.testing.assert_close(te(weights[0]), te(weights_cold[0]), rtol=0, atol=0)
     assert not torch.equal(te(weights[1]), te(weights_cold[1]))
-    cfg["optimizer"]["method"] = "lbfgs"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        one_d_loop(cfg, all_data, sas, np.arange(4), 2, device="cpu")
+    cfg["optimizer"]["method"] = "lbfgs"  # the device L-BFGS, which raised here until it was ported
+    record = {}
+    weights, overall, lbfgs_loss_fn = one_d_loop(cfg, all_data, sas, np.arange(4), 2, device="cpu", record=record)
+    assert len(weights) == 2 and np.isfinite(overall) and len(record["losses"]) == 2 * cfg["optimizer"]["num_epochs"]
+    assert lbfgs_loss_fn.e_norm == pytest.approx(float(data["e_data"][:2].max()))  # one loss function for both batches

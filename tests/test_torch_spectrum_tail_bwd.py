@@ -199,8 +199,9 @@ def _card_checks_on_cpu(t, name, ndim):
 @pytest.mark.parametrize("S", range(1, spectrum_tail.MAX_SPECIES + 1))
 def test_bwd_wrapper_dispatch_rehearsed_on_cpu(S, monkeypatch):
     """The card path of ``spectrum_tail_bwd`` up to its C call, on CPU tensors: the C entry point (which
-    dispatches S to the kernel's instantiation) gets the operands, g, the ten outputs and the float64
-    sums in ``_BWD_ARGTYPES``'s order, then (B, G, L, NA, S); the outputs have ``GRAD_NAMES``' shapes."""
+    dispatches S to the kernel's instantiation) gets the operands (the log-EDF shift lfc last of them, zeros
+    [B] when not given), g, the ten outputs and the float64 sums in ``_BWD_ARGTYPES``'s order, then (B, G, L,
+    NA, S); the outputs have ``GRAD_NAMES``' shapes."""
     from tsadar_tpu_torch.ops import build
 
     B, G, L, NA = 2, 2, 7, 3
@@ -219,8 +220,8 @@ def test_bwd_wrapper_dispatch_rehearsed_on_cpu(S, monkeypatch):
     ((lib, name, argtypes), a, device), = calls
     assert (lib, name, argtypes) == ("spectrum_tail_bwd", "spectrum_tail_bwd", spectrum_tail._BWD_ARGTYPES)
     assert len(a) + 1 == len(argtypes) and a[-5:] == (B, G, L, NA, S) and device == args[0].device
-    assert a[:2] == (args[0].data_ptr(), args[1].data_ptr()) and a[15] == g.data_ptr()
-    assert a[16:26] == tuple(o.data_ptr() for o in outs)
+    assert a[:2] == (args[0].data_ptr(), args[1].data_ptr()) and a[16] == g.data_ptr()
+    assert a[17:27] == tuple(o.data_ptr() for o in outs)
     shapes = [(B, G, L, NA)] * 2 + [(B, G)] * 2 + [(B,)] * 3 + [(B, S)] * 3
     assert [tuple(o.shape) for o in outs] == shapes
 

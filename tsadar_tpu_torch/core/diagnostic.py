@@ -6,12 +6,20 @@ over the lineouts, the batch is the leading dimension of every tensor here.
 For ``angular_full`` (ARTS) the model is unbatched: one image [fine angles, L]
 gets the 2D instrument response and is block-averaged to the detector's
 resolution units.
+
+``spectrum_breakdown`` gives what the postprocess's ``detailed_breakdown``
+plots for a batch of 1V lineouts: the per-component (unreduced) spectra, and
+the instrument response alone, as the fitted spectra's two most prominent
+peaks (``scipy.signal.find_peaks`` on the host) put through the same
+``postprocess_theory``.
 """
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device, working_dtype
+from ..utils.console import log_info
 from .physics import irf
 from .physics.spectrum import SpectrumModel
 
@@ -93,6 +101,63 @@ class ThomsonScatteringDiagnostic(nn.Module):
     def device_batch(self, batch):
         """``batch`` with every entry as a tensor on the device, in the working dtype."""
         return {k: self._tensor(v) for k, v in batch.items()}
+
+    @staticmethod
+    def _irf_deltas(spectra):
+        """[B, n] numpy: ones at each row's two most prominent peaks (prominence 0.1), zeros elsewhere."""
+        from scipy.signal import find_peaks
+
+        arr = np.atleast_2d(spectra)
+        out = np.zeros_like(arr)
+        for i in range(arr.shape[0]):
+            try:
+                peaks, props = find_peaks(arr[i], prominence=0.1)
+                order = np.argsort(props["prominences"])
+                out[i, peaks[order[-1]]] = 1.0
+                if len(peaks) > 1:
+                    out[i, peaks[order[-2]]] = 1.0
+            except (ValueError, IndexError):  # no peak: the JAX package's message, and no IRF line
+                log_info("Unable to locate peak; IRF may not be plotted")
+        return out
+
+    @torch.no_grad()
+    def spectrum_breakdown(self, ts_params, batch):
+        """The detailed breakdown of a batch of 1V lineouts: ``(modlE, modlI, ThryE, ThryI, eIRF, iIRF, lamAxisE,
+        lamAxisI, lamAxisE_raw, lamAxisI_raw)``.
+
+        modlE/modlI [B, 1024]: the total spectra through the instrument, with
+        the noise; ThryE/ThryI [B, G, L, A]: the unreduced component stacks,
+        scaled by each lineout's amplitude over the batch's largest entry;
+        eIRF/iIRF [B, 1024]: the instrument response of the two most
+        prominent peaks of each fitted spectrum, scaled the same way; the
+        axes [B, 1024] after the instrument and [B, L] before it.  A feature
+        that is off gives zeros [B, 1].  The JAX package's
+        ``spectrum_breakdown``, with the peak search on the host.
+        """
+        if self.angular:
+            raise NotImplementedError("the angular breakdown is not ported yet (ROADMAP.md §1 item 7)")
+        opts = self.cfg["other"]["extraoptions"]
+        physical = ts_params()
+        amps = {k: self._tensor(batch[k]) for k in ("e_amps", "i_amps")}
+        modlE, modlI, ThryE, ThryI, lamE_raw, lamI_raw = self.model.detailed_spectrum(physical)
+        modlE, modlI, lamE, lamI = self.postprocess_theory(modlE, modlI, lamE_raw, lamI_raw, amps, physical)
+
+        def deltas(spectra, loaded):
+            return self._tensor(self._irf_deltas(spectra.cpu().numpy())) if loaded else torch.zeros_like(spectra)
+
+        eIRF, iIRF = deltas(modlE, opts["load_ele_spec"]), deltas(modlI, opts["load_ion_spec"])
+        eIRF, iIRF, lamE, lamI = self.postprocess_theory(eIRF, iIRF, lamE, lamI, amps, physical)
+        modlE = modlE + self._tensor(batch["noise_e"])
+        modlI = modlI + self._tensor(batch["noise_i"])
+        if opts["load_ele_spec"]:
+            ThryE = amps["e_amps"].reshape(-1, 1, 1, 1) * ThryE / torch.amax(ThryE)
+            eIRF = amps["e_amps"].reshape(-1, 1) * eIRF / torch.amax(eIRF)
+        if opts["load_ion_spec"]:
+            ThryI = amps["i_amps"].reshape(-1, 1, 1, 1) * ThryI / torch.amax(ThryI)
+            iIRF = amps["i_amps"].reshape(-1, 1) * iIRF / torch.amax(iIRF)
+        B = modlE.shape[0]
+        per_lineout = lambda a: a.expand(B, -1) if a.dim() == 1 else a  # noqa: E731  one axis a lineout, as JAX's
+        return (modlE, modlI, ThryE, ThryI, eIRF, iIRF, *map(per_lineout, (lamE, lamI, lamE_raw, lamI_raw)))
 
     def forward(self, ts_params, batch):
         return self.spectra(ts_params(), batch)

@@ -2,10 +2,16 @@
 
 Counterparts of ``tsadar_tpu.core.params.distributions``: ``DLM1V`` (the
 Dum-Langdon-Matte super-Gaussian family, differentiable in its shape
-parameter m through a projected table), ``Maxwellian1V``, and ``Arbitrary2V``
-(a pointwise-learnable f(vx, vy), unbatched).  The trainable value is the
-normalized m, one per lineout, or the 2D array ``fval``; grids and tables are
-buffers.
+parameter m through a projected table), ``Maxwellian1V``, ``Arbitrary1V`` (a
+pointwise-learnable f(v) per lineout, smoothed by a second-order Butterworth
+filter) and ``Arbitrary2V`` (a pointwise-learnable f(vx, vy), unbatched).  The
+trainable value is the normalized m, one per lineout, or the array ``fval``;
+grids and tables are buffers.
+
+The Butterworth filter is linear in its input, the initial carry included, so
+``second_order_butterworth`` applies it as one fixed matrix: the JAX package's
+scan, transcribed in numpy and run in float64 on unit impulses, gives the
+matrix, which is cast to the working dtype and applied with one matmul.
 """
 
 import math
@@ -69,6 +75,44 @@ def _interp_columns(x, xp, fp):
     return torch.where((x > xp[-1])[:, None], fp[:, -1:].T, f)
 
 
+def _butterworth_scan(signal, f_sampling, f_cutoff, method):
+    """The JAX package's ``second_order_butterworth`` in numpy float64, along the last axis."""
+    if method == "forward_backward":
+        signal = _butterworth_scan(signal, f_sampling, f_cutoff, "forward")
+        return _butterworth_scan(signal, f_sampling, f_cutoff, "backward")
+    if method == "backward":
+        signal = np.flip(signal, axis=-1)
+    elif method != "forward":
+        raise NotImplementedError(method)
+    ita = 1.0 / np.tan(np.pi * f_cutoff / f_sampling)
+    q = np.sqrt(2.0)
+    b0 = 1.0 / (1.0 + q * ita + ita**2)
+    b1, b2 = 2 * b0, b0
+    a1 = 2.0 * (ita**2 - 1.0) * b0
+    a2 = -(1.0 - q * ita + ita**2) * b0
+    x = np.moveaxis(signal, -1, 0)
+    x_im1, x_im2, y_im1, y_im2 = x[1], x[0], x[1], x[0]
+    ys = []
+    for x_i in x[2:]:
+        y_i = b0 * x_i + b1 * x_im1 + b2 * x_im2 + a1 * y_im1 + a2 * y_im2
+        x_im1, x_im2, y_im1, y_im2 = x_i, x_im1, y_i, y_im1
+        ys.append(y_i)
+    out = np.moveaxis(np.stack([ys[0], ys[0]] + ys), 0, -1)
+    return np.flip(out, axis=-1) if method == "backward" else out
+
+
+@lru_cache(maxsize=8)
+def _butterworth_matrix(n, f_sampling, f_cutoff, method):
+    """[n, n] float64: ``signal @ M`` is the filtered signal (row i: the response to the unit impulse at i)."""
+    return np.ascontiguousarray(_butterworth_scan(np.eye(n), f_sampling, f_cutoff, method))
+
+
+def second_order_butterworth(signal, f_sampling=100, f_cutoff=15, method="forward_backward"):
+    """The second-order Butterworth filter along the last axis of ``signal`` (zero-phase when forward_backward)."""
+    m = _butterworth_matrix(signal.shape[-1], f_sampling, f_cutoff, method)
+    return torch.matmul(signal, torch.as_tensor(m, dtype=signal.dtype, device=signal.device))
+
+
 class DLM1V(nn.Module):
     """Super-Gaussian EDF family, one shape parameter m per lineout."""
 
@@ -115,6 +159,31 @@ class Maxwellian1V(nn.Module):
         f = torch.exp(-(self.vx**2) / 2)
         f = f / torch.sum(f) / dv
         return f if self.num_params is None else f.expand(self.num_params, -1)
+
+
+class Arbitrary1V(nn.Module):
+    """Pointwise-learnable f(v), one per lineout: ``fval`` [B, nvx] holds sqrt(-log10 f) / 7 of the DLM
+    projection of order ``init_m``; calling the module smooths it (Butterworth, cutoff 6 of 100), undoes
+    the parameterization and normalizes each EDF to unit integral."""
+
+    def __init__(self, dist_cfg, num_params, activate, batch=True):
+        super().__init__()
+        vx, ms, table = _dlm_projected_table(dist_cfg["nvx"])
+        m0 = float(dist_cfg["params"]["init_m"])
+        f0 = np.array([np.interp(m0, ms, row) for row in table])
+        f0 = f0 / np.trapezoid(f0, vx)
+        fval = np.sqrt(-np.log10(f0)) / 7.0
+        self.fval = nn.Parameter(torch.tensor(np.broadcast_to(fval, (num_params, fval.size)) if batch else fval))
+        self.register_buffer("vx", torch.as_tensor(velocity_grid(dist_cfg["nvx"])))
+
+    def get_unnormed_params(self):
+        return {"f": self()}
+
+    def forward(self):
+        smoothed = second_order_butterworth(self.fval, f_sampling=100, f_cutoff=6)
+        f = torch.pow(10.0, -((7.0 * smoothed) ** 2.0))
+        dv = self.vx[1] - self.vx[0]
+        return f / torch.sum(f, dim=-1, keepdim=True) / dv
 
 
 def gamma(x):

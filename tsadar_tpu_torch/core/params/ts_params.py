@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device, working_dtype
-from .distributions import DLM1V, Arbitrary2V, Maxwellian1V, act, inv_act
+from .distributions import DLM1V, Arbitrary1V, Arbitrary2V, Maxwellian1V, act, inv_act
 from .spherical import SphericalHarmonics
 
 
@@ -44,14 +44,14 @@ class ParamGroup(nn.Module):
         }
 
 
-_DIST_1V = {"dlm": DLM1V, "mx": Maxwellian1V}
+_DIST_1V = {"dlm": DLM1V, "mx": Maxwellian1V, "arbitrary": Arbitrary1V}
 
 
 def _make_distribution(fe_cfg, num_params, batch, activate):
     dim, kind = fe_cfg["dim"], fe_cfg["type"].casefold()
     if dim == 1:
         if kind not in _DIST_1V:
-            raise NotImplementedError(f"1V '{fe_cfg['type']}' distributions are not ported yet (ROADMAP.md §1 item 5)")
+            raise NotImplementedError(f"Unknown 1D distribution type: {fe_cfg['type']}")
         return _DIST_1V[kind](fe_cfg, num_params, activate, batch)
     if dim == 2:
         if batch:

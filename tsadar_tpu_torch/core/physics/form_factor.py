@@ -25,8 +25,9 @@ projection with one matmul, and looks all three tables up at every
 (wavelength, angle) point through ``interp.chi_bilinear_lookup``: the K7/K8
 kernels on the card, their plain twins on the CPU.
 
-The unreduced 1V ``__call__`` (the ARTS 1V deck) runs the same two lookups and
-the tail's plain form without its reduction.
+The unreduced 1V ``unreduced_1v`` (the per-component spectra of a breakdown)
+and ``__call__`` (the ARTS 1V deck, unbatched) run the same two lookups and the
+tail's plain form without its reduction.
 
 The 2V path is the JAX package's table mode with the slice-theorem projection;
 its exact mode, its rotate projection and point sharding are not ported yet
@@ -199,14 +200,20 @@ def _assemble_fields(k_mag, ceR, ceI, ciR, ciI, fe_vphi, vTe, xii, vTi, Z, fract
     return (SKW_ion + SKW_ele) * (1.0 + 2.0 * omgdop / omgL) * scale
 
 
-def _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, omgs):
+def _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, omgs, lfc=None):
     """The unreduced 1V spectrum [B, G, L, A] from the two lookups: kinematics, ion susceptibility,
     the electron Landau term and the S(k, omega) assembly.  Shapes as in ``_reduced_tail``."""
     omgL, k, omgdop, vTe, klde, xie = _kinematics_fields(sarad, omgs, ne, Te, lam, Va, ud)
     ciR, ciI, xii, vTi, Zbar = _ion_fields(omgdop, k, ne, Z, Ti, fract, A)
 
-    fe_vphi = torch.exp(lf)
-    df = torch.diff(fe_vphi, dim=2) / torch.diff(xie, dim=2)
+    fe_vphi = torch.exp(lf if lfc is None else lf + lfc[:, None, None, None])
+    if lf.dtype == torch.float64:  # the digits to subtract the two f_e directly, as the JAX package does
+        dfe = torch.diff(fe_vphi, dim=2)
+    else:
+        # f_e[l + 1] - f_e[l] = f_e[l] expm1(lf[l + 1] - lf[l]), as the kernels form it: at the ion window
+        # neighbouring xi_e differ by ~1e-5 and f_e by ~1e-7 of itself, below float32's resolution of f_e
+        dfe = fe_vphi[:, :, :-1] * torch.expm1(torch.diff(lf, dim=2))
+    df = dfe / torch.diff(xie, dim=2)
     df = torch.cat([df, torch.zeros_like(fe_vphi[:, :, :1])], dim=2)  # 0 at the last wavelength (and at L = 1)
     # electron Landau term with the Kramers-Kronig-consistent MINUS sign
     # (the JAX package's documented fix of the reference's +pi)
@@ -217,14 +224,15 @@ def _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, om
     return _assemble_fields(k, ceR, ceI, ciR, ciI, fe_vphi, vTe, xii, vTi, Z, fract, Zbar, omgdop, omgL, ne, lams)
 
 
-def _reduced_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weights, sarad, omgs):
+def _reduced_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weights, sarad, omgs, lfc=None):
     """Angle-weighted, gradient-averaged spectrum [B, L] from the two lookups.
 
     lf, chiERraw [B,G,L,A]; ne/Te [B,G]; lam/Va/ud [B]; A/Z/Ti/fract [B,S];
-    weights a scalar or [A]; sarad [A]; omgs [L].  The plain form of the
-    ``spectrum_tail_fwd`` kernel.
+    weights a scalar or [A]; sarad [A]; omgs [L]; lfc [B] or None (0): the
+    shift of each lineout's log f_e, log f_e = lf + lfc.  The plain form of
+    the ``spectrum_tail_fwd`` kernel.
     """
-    PsLam = _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, omgs)
+    PsLam = _spectrum_tail(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, sarad, omgs, lfc)
     return torch.sum(torch.mean(PsLam, dim=1) * weights, dim=-1)
 
 
@@ -325,14 +333,25 @@ class FormFactor:
         return _gradient_last(ratmod, self.dxi1).contiguous()
 
     def _lookups_1v(self, params):
-        """Every input of the spectrum tail: (lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract)."""
+        """The lookups' outputs and the tail's parameters: (lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract,
+        lfc).  In float32 lf is looked up on each lineout's log f_e less its largest entry lfc [B] (log f_e =
+        lf + lfc, the interpolation being exact for constants): near the EDF's peak lf is then small, and so
+        are its rounding errors, which the Landau term's difference of neighbouring f_e would otherwise
+        amplify at the ion window.  In float64 lfc is 0, and the values are the JAX package's.  lfc carries
+        no gradient: the tail depends on lf + lfc alone."""
         xie, log_fe, meta, table, rest = self._lookup_inputs_1v(params)
         vx = params["electron"]["v"]
         q = xie.reshape(xie.shape[0], -1)
-        lf = cubic_lookup(q, log_fe, meta)
-        lf = torch.where((q < vx[0]) | (q > vx[-1]), -50.0, lf)
+        lfc = torch.amax(log_fe, dim=1).detach() if log_fe.dtype == torch.float32 else log_fe.new_zeros(log_fe.shape[0])
+        lf = cubic_lookup(q, (log_fe - lfc[:, None]).contiguous(), meta)
+        lf = torch.where((q < vx[0]) | (q > vx[-1]), -50.0 - lfc[:, None], lf)
         chiERraw = lin_lookup(q, table, self.pv_x0, self.pv_dx)
-        return lf.view_as(xie), chiERraw.view_as(xie), *rest
+        return lf.view_as(xie), chiERraw.view_as(xie), *rest, lfc
+
+    def tail_args(self, params, weights):
+        """The fifteen arguments of ``_reduced_tail`` (and of the K5/K6 kernels) for ``params``."""
+        *inputs, lfc = self._lookups_1v(params)
+        return (*inputs, weights, self.sarad, self.omgs, lfc)
 
     def reduced_1v(self, params, weights):
         """(reduced spectrum [B, L], wavelength axis [L] in cm) through the spectrum tail.
@@ -342,19 +361,25 @@ class FormFactor:
         """
         from ...ops.spectrum_tail import SpectrumTail
 
-        args = (*self._lookups_1v(params), weights, self.sarad, self.omgs)
+        args = self.tail_args(params, weights)
         reduced = _reduced_tail(*args) if plain_forms_on(*args[:2]) else SpectrumTail.apply(*args)
         return reduced, 2.0 * math.pi * C / self.omgs
 
-    def __call__(self, params):
-        """(S(k, omega) [G, L, A], wavelength axis [L] in cm) for a 1D EDF, unreduced; ``params`` are unbatched.
+    def unreduced_1v(self, params):
+        """(S(k, omega) [B, G, L, A], wavelength axis [L] in cm) of a batch of lineouts, unreduced.
 
-        What the angular (ARTS) spectrum needs, one weight per (camera angle,
-        fine angle): the two lookups through K1 and K3 on the card, then the
-        tail in plain tensor code, as the JAX package leaves it to XLA.
+        The two lookups (K1 and K3, with K9's pole table, on the card), then
+        the tail in plain tensor code, as the JAX package leaves it to XLA:
+        what the per-component spectra of a breakdown and the ARTS 1V deck need.
         """
-        inputs = self._lookups_1v(_batch_of_one(params))
-        return _spectrum_tail(*inputs, self.sarad, self.omgs)[0], 2.0 * math.pi * C / self.omgs
+        *inputs, lfc = self._lookups_1v(params)
+        return _spectrum_tail(*inputs, self.sarad, self.omgs, lfc), 2.0 * math.pi * C / self.omgs
+
+    def __call__(self, params):
+        """(S(k, omega) [G, L, A], wavelength axis [L] in cm) for a 1D EDF, unreduced; ``params`` are unbatched
+        (the angular spectrum's, one weight per camera angle and fine angle)."""
+        skw, lam_axis = self.unreduced_1v(_batch_of_one(params))
+        return skw[0], lam_axis
 
     # -------------------------------------------------------------------- 2V
 

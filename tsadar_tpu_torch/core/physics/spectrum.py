@@ -7,6 +7,11 @@ and its composed branch for one angular (ARTS) image: the unreduced spectrum
 mean over gradient points, and for ``angular_full`` the product with the
 fine-angle weight matrix, which gives the [angle, wavelength] image.
 
+``detailed_spectrum`` gives, beside the reduced spectra, the unreduced stacks
+[B, G, L, A] of both features (``FormFactor.unreduced_1v``), with the iaw
+notch filter's band pressed down by ``FILTER_SUPPRESSION_OD`` in the electron
+stack: what ``ThomsonScatteringDiagnostic.spectrum_breakdown`` plots.
+
 Parity quirk kept on purpose: the angle weights are ``weights[0]`` of the
 beam's 1-D aperture-weight vector, i.e. ONE scalar that multiplies the plain
 angle sum (the reference's ``generate_spectra.py`` indexing, which the JAX
@@ -20,6 +25,7 @@ import torch
 from .form_factor import FormFactor
 
 PROBE_NOTCH_HALF_WIDTH_NM = 3.0  # iawoff notch about the probe line
+FILTER_SUPPRESSION_OD = 9  # the OD of the filter band in the unreduced electron stack of a breakdown
 
 
 class SpectrumModel:
@@ -108,8 +114,45 @@ class SpectrumModel:
         return blue, red, od
 
     @staticmethod
-    def _od_filter(spectrum, lam_axis, band):
-        """Multiply the filter band by 10^-OD (physical notch filter)."""
-        blue, red, od = band
+    def _od_filter(spectrum, lam_axis, band, od=None):
+        """Multiply the filter band by 10^-OD (physical notch filter); ``od`` overrides the band's own."""
+        blue, red, band_od = band
         in_band = (lam_axis > blue) & (lam_axis < red)
-        return torch.where(in_band, spectrum * 10.0 ** (-od), spectrum)
+        return torch.where(in_band, spectrum * 10.0 ** (-(band_od if od is None else od)), spectrum)
+
+    # -------- detailed (per-component) variants for the postprocess's breakdown --------
+
+    def detailed_spectrum(self, all_params: Dict):
+        """(ele_reduced [B, L], ion_reduced [B, L], ele_stack [B, G, L, A], ion_stack, lam_axis_ele [L],
+        lam_axis_ion [L]) of a batch of 1V lineouts; a feature that is off gives zeros [B, 1] for all three."""
+        lam_axis_ion, ion_reduced, ion_stack = self.ion_spectrum_detailed(all_params)
+        lam_axis_ele, ele_reduced, ele_stack = self.electron_spectrum_detailed(all_params)
+        return ele_reduced, ion_reduced, ele_stack, ion_stack, lam_axis_ele, lam_axis_ion
+
+    def _raw(self, form_factor, all_params):
+        """The unreduced stack [B, G, L, A] of a 1V batch and its wavelength axis [L] in nm."""
+        if self.dim != 1 or self.angular_full:
+            raise NotImplementedError("the detailed spectrum of the angular spectypes is not ported yet (ROADMAP.md §1 item 7)")
+        skw, lam_axis = form_factor.unreduced_1v(all_params)
+        return skw, lam_axis * 1e7
+
+    def ion_spectrum_detailed(self, all_params):
+        if self.ion_form_factor is None:
+            z = self._off(all_params)[0]
+            return z, z, z
+        skw, lam_axis = self._raw(self.ion_form_factor, all_params)
+        return lam_axis, torch.sum(torch.mean(skw, dim=1) * self.weight, dim=-1), skw
+
+    def electron_spectrum_detailed(self, all_params):
+        if not self.config["other"]["extraoptions"]["load_ele_spec"]:
+            z = self._off(all_params)[0]
+            return z, z, z
+        skw, lam_axis = self._raw(self.electron_form_factor, all_params)
+        reduced = torch.sum(torch.mean(skw, dim=1) * self.weight, dim=-1)
+        reduced = self._probe_notch(reduced, lam_axis, all_params["general"]["lam"])
+        band = self._filter_band()
+        if band is not None:
+            reduced = self._od_filter(reduced, lam_axis, band)
+            # the band pressed down hard in the unreduced stack: the component plots show the filtered reality
+            skw = self._od_filter(skw, lam_axis[:, None], band, od=FILTER_SUPPRESSION_OD)
+        return lam_axis, reduced, skw

@@ -12,7 +12,8 @@ the JAX package:
   asymptotic (2n-1)!! series above |x| = 6.
 
 ``dawsn`` is differentiable through the analytic D' = 1 - 2 x D (the JAX
-package's ``_dawsn_jvp``), not through the series.
+package's ``_dawsn_jvp``), not through the series.  ``zprimeMaxw`` stacks
+the two parts, as the reference's table lookup of that name returned them.
 """
 
 import math
@@ -81,3 +82,8 @@ def zprime(xi):
     re = -2.0 * (1.0 - 2.0 * xi * dawsn(xi))
     im = -2.0 * math.sqrt(math.pi) * xi * torch.exp(-(xi**2))
     return re, im
+
+
+def zprimeMaxw(xi):
+    """The reference's API: (Re Z', Im Z') stacked to [2, *xi.shape]."""
+    return torch.stack(zprime(xi))

@@ -47,11 +47,18 @@
 //   lf (one right halo), [first, first + kThreads) of chi; with A <= kMaxChunk
 //   one chunk, contiguous in memory -- into shared memory with coalesced
 //   asynchronous copies (cp.async), and a pre-pass computes at every slab
-//   point, once, f_e = exp(lf), k and xi_e.  A thread reads its own point and
-//   its right neighbour's from there: the neighbour is no longer recomputed,
-//   and both sides of the difference xi_e[l+1] - xi_e[l] come from one
-//   expression.  The last wavelength has no neighbour and gets df = 0.  The
-//   chunks bound the shared memory at ~25 KB a block whatever A is.
+//   point, once, k and xi_e.  A thread reads its own point and its right
+//   neighbour's from there: the neighbour is no longer recomputed, and both
+//   sides of the difference xi_e[l+1] - xi_e[l] come from one expression.
+//   The last wavelength has no neighbour and gets df = 0.  The chunks bound
+//   the shared memory at ~25 KB a block whatever A is.
+// * The Landau term's difference of f_e is f_e[l] expm1(lf[l+1] - lf[l]),
+//   f_e = exp(lf + lfc), not the difference of two rounded f_e: lf is each
+//   lineout's log f_e less its largest entry lfc (form_factor._lookups_1v),
+//   small near the EDF's peak, so its float32 rounding is too.  At the ion
+//   window neighbouring xi_e differ by ~1e-5 and f_e by ~1e-7 of itself,
+//   under float32's resolution of f_e, and the ion-acoustic resonance is set
+//   by that Landau term.
 // * 1/k and 1/E2 are hardware reciprocals (__fdividef: an ulp or two, no IEEE
 //   division sequence), multiplied where the formula divided; the Landau
 //   difference and the asymptotic series keep their IEEE divisions.
@@ -72,7 +79,7 @@ constexpr int kMaxChunk = 12;        // angles staged at once
 // (the main path); more species keep more in registers and would spill under that cap
 __host__ __device__ constexpr int min_blocks(int S) { return S == 1 ? 8 : 4; }
 
-// Shared floats for chunks of NC angles: per angle, f_e (staged as lf), k and xi_e on the slab and chi per
+// Shared floats for chunks of NC angles: per angle, lf, k and xi_e on the slab and chi per
 // thread; and k_s per slab wavelength.
 __host__ __device__ constexpr int smem_floats(int NC) { return (3 * kSlab + kThreads) * NC + kSlab; }
 static_assert(smem_floats(kMaxChunk) * sizeof(float) <= 48 * 1024, "a block's shared memory must need no opt-in");
@@ -95,11 +102,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
     const float* __restrict__ ud, const float* __restrict__ Am, const float* __restrict__ Z,
     const float* __restrict__ Ti, const float* __restrict__ fract, const float* __restrict__ cos_sa,
     const float* __restrict__ weight, const float* __restrict__ omgs, const float* __restrict__ gauss,
-    float* __restrict__ out, int G, int L, int NA, int NC) {
+    const float* __restrict__ lfc, float* __restrict__ out, int G, int L, int NA, int NC) {
   // laid out for chunks of NC angles; a chunk of nc <= NC angles uses [rows][nc] of each
   extern __shared__ float smem[];
-  float* fe_s = smem;                  // [kSlab][nc]: lf as staged, then f_e
-  float* k_s = fe_s + kSlab * NC;      // [kSlab][nc]
+  float* lf_s = smem;                  // [kSlab][nc]
+  float* k_s = lf_s + kSlab * NC;      // [kSlab][nc]
   float* xie_s = k_s + kSlab * NC;     // [kSlab][nc]
   float* chi_s = xie_s + kSlab * NC;   // [kThreads][nc]
   float* ks_s = chi_s + kThreads * NC; // [kSlab]
@@ -116,6 +123,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
   const float two_over_omgL = 2.0f / omgL;
   const float va = Va[b];
   const float udb = ud[b];
+  const float lfc_b = lfc[b];
   const float om = omgs[l];
   const float inv_sqrt_2pi = static_cast<float>(1.0 / sqrt(2.0 * kPi));
 
@@ -151,14 +159,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
     for (int a0 = 0; a0 < NA; a0 += NC) {
       const int nc = min(NC, NA - a0);  // this chunk's angles: a0 .. a0 + nc - 1
 
-      // ---- the slab: lf and chi in, coalesced; then f_e, k and xi_e at every slab point
+      // ---- the slab: lf and chi in, coalesced; then k and xi_e at every slab point
       __syncthreads();  // the previous chunk's slab is consumed
       SlabWalk<kThreads> w(tid, nc);
       for (int e = tid; e < kSlab * nc; e += kThreads, w.next()) {
         const int li = first + w.row;
         const bool ok = li < L;
         const size_t src = ok ? row0 + static_cast<size_t>(li) * NA + a0 + w.col : 0;
-        copy_async(fe_s + e, lf + src, ok);
+        copy_async(lf_s + e, lf + src, ok);
         if (e < kThreads * nc) copy_async(chi_s + e, chi + src, ok);
       }
       for (int i = tid; i < kSlab; i += kThreads) {
@@ -174,7 +182,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
         const float ks_i = ks_s[i];
         const float cth = cos_sa[a0 + w.col];
         const float k = sqrtf(ks_i * ks_i + kL * kL - 2.0f * ks_i * kL * cth);
-        fe_s[e] = expf(fe_s[e]);
         k_s[e] = k;
         xie_s[e] = ((omgs[li] - omgL) - k * va) / (k * vTe) - ud_vTe;
       }
@@ -183,8 +190,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
       for (int a = 0; a < nc; ++a) {
         const int e = ic * nc + a;
         const float k = k_s[e];
-        const float fe = fe_s[e];
-        const float df = has_next ? (fe_s[e + nc] - fe) / (xie_s[e + nc] - xie_s[e]) : 0.0f;
+        const float lfv = lf_s[e];
+        const float fe = expf(lfv + lfc_b);
+        const float df = has_next ? fe * expm1f(lf_s[e + nc] - lfv) / (xie_s[e + nc] - xie_s[e]) : 0.0f;
         const float inv_k = __fdividef(1.0f, k);
         const float inv_k2 = inv_k * inv_k;
         const float omgdop = (om - omgL) - k * va;
@@ -221,7 +229,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_kernel(
 }
 
 struct Args {
-  const float *lf, *chi, *ne, *Te, *lam, *Va, *ud, *A, *Z, *Ti, *fract, *cos_sa, *weight, *omgs, *gauss;
+  const float *lf, *chi, *ne, *Te, *lam, *Va, *ud, *A, *Z, *Ti, *fract, *cos_sa, *weight, *omgs, *gauss, *lfc;
   float* out;
   int B, G, L, NA;
   cudaStream_t stream;
@@ -236,7 +244,7 @@ int launch(const Args& x) {
   const dim3 grid((x.L + kThreads - 1) / kThreads, x.B);
   spectrum_tail_kernel<S><<<grid, kThreads, smem, x.stream>>>(x.lf, x.chi, x.ne, x.Te, x.lam, x.Va, x.ud, x.A, x.Z,
                                                               x.Ti, x.fract, x.cos_sa, x.weight, x.omgs, x.gauss,
-                                                              x.out, x.G, x.L, x.NA, NC);
+                                                              x.lfc, x.out, x.G, x.L, x.NA, NC);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -245,10 +253,11 @@ int launch(const Args& x) {
 extern "C" int spectrum_tail_fwd(const void* lf, const void* chi, const void* ne, const void* Te, const void* lam,
                                  const void* Va, const void* ud, const void* A, const void* Z, const void* Ti,
                                  const void* fract, const void* cos_sa, const void* weight, const void* omgs,
-                                 const void* gauss, void* out, int B, int G, int L, int NA, int S, void* stream) {
+                                 const void* gauss, const void* lfc, void* out, int B, int G, int L, int NA, int S,
+                                 void* stream) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const Args x{f(lf), f(chi), f(ne), f(Te), f(lam), f(Va), f(ud), f(A), f(Z), f(Ti), f(fract), f(cos_sa),
-               f(weight), f(omgs), f(gauss), static_cast<float*>(out), B, G, L, NA,
+               f(weight), f(omgs), f(gauss), f(lfc), static_cast<float*>(out), B, G, L, NA,
                static_cast<cudaStream_t>(stream)};
   switch (S) {
     case 1: return launch<1>(x);

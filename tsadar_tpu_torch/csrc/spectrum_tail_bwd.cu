@@ -41,10 +41,14 @@
 //   angles of lf, [first - 1, first + kOwned) of chi; with A <= kMaxChunk
 //   one chunk, contiguous in memory -- into shared memory with coalesced
 //   asynchronous copies (cp.async), and a pre-pass computes at every slab
-//   point, once, f_e = exp(lf), k, xi_e and xi_e's two slopes for the
-//   by-parts sum.  A thread reads its own point and its right neighbour's from
-//   there: the neighbour is no longer recomputed, and both sides of every
-//   difference (xi_e[l+1] - xi_e[l], X[l] - X[l+1]) come from one expression.
+//   point, once, k, xi_e and xi_e's two slopes for the by-parts sum.  A
+//   thread reads its own point and its right neighbour's from there: the
+//   neighbour is no longer recomputed, and both sides of every difference
+//   (xi_e[l+1] - xi_e[l], X[l] - X[l+1]) come from one expression.  f_e =
+//   exp(lf + lfc) and the Landau difference f_e[l] expm1(lf[l+1] - lf[l]) are
+//   formed as spectrum_tail.cu forms them (lf is log f_e less its largest
+//   entry lfc): the derivatives of that difference are -f_e[l] and f_e[l+1],
+//   as before.
 // * The thread keeps g_fe (in its own k's slot) and t per (point, angle) in
 //   shared memory; after the chunk's angle loop one barrier, then
 //   g_lf = (g_fe + (t[l-1] - t[l])) f_e and g_chi are written out coalesced.
@@ -118,7 +122,7 @@ constexpr int kMaxChunk = 12;         // angles staged at once
 // (the main path); more species keep more in registers and would spill under that cap
 __host__ __device__ constexpr int min_blocks(int S) { return S == 1 ? 5 : 4; }
 
-// Shared floats for chunks of NC angles: per angle, f_e, k (then an owner's g_fe), xi_e and its two slopes
+// Shared floats for chunks of NC angles: per angle, lf, k (then an owner's g_fe), xi_e and its two slopes
 // on the slab, chi (then an owner's g_chi) and t per thread; and k_s per slab wavelength.
 __host__ __device__ constexpr int smem_floats(int NC) { return (5 * kSlab + 2 * kThreads) * NC + kSlab; }
 constexpr size_t kBlockSmem = smem_floats(kMaxChunk) * sizeof(float) + kWarps * sizeof(double);  // + the reduction
@@ -179,12 +183,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
     const float* __restrict__ ud, const float* __restrict__ Am, const float* __restrict__ Z,
     const float* __restrict__ Ti, const float* __restrict__ fract, const float* __restrict__ cos_sa,
     const float* __restrict__ weight, const float* __restrict__ omgs, const float* __restrict__ gauss,
-    const float* __restrict__ gout, float* __restrict__ g_lf, float* __restrict__ g_chi, double* __restrict__ sums,
-    int G, int L, int NA, int NC) {
+    const float* __restrict__ lfc, const float* __restrict__ gout, float* __restrict__ g_lf,
+    float* __restrict__ g_chi, double* __restrict__ sums, int G, int L, int NA, int NC) {
   // laid out for chunks of NC angles; a chunk of nc <= NC angles uses [rows][nc] of each
   extern __shared__ float smem[];
-  float* fe_s = smem;                  // [kSlab][nc]: lf as staged, then f_e
-  float* k_s = fe_s + kSlab * NC;      // [kSlab][nc]: k, then an owner's g_fe (k is read by its own thread alone)
+  float* lf_s = smem;                  // [kSlab][nc]
+  float* k_s = lf_s + kSlab * NC;      // [kSlab][nc]: k, then an owner's g_fe (k is read by its own thread alone)
   float* xie_s = k_s + kSlab * NC;     // [kSlab][nc]
   float* xL_s = xie_s + kSlab * NC;    // [kSlab][nc]: d xi_e / d omega_L times vTe
   float* xpe_s = xL_s + kSlab * NC;    // [kSlab][nc]: d xi_e / d omega_pe times vTe
@@ -211,6 +215,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
   const float m2_over_omgL2 = -2.0f / (omgL * omgL);
   const float va = Va[b];
   const float udb = ud[b];
+  const float lfc_b = lfc[b];
   const float om = omgs[l];
   const float om_n = has_next ? omgs[l + 1] : om;
   const float wl = om * om / (2.0f * K.pi * K.c);  // 2 pi c / lams^2 with lams = 2 pi c / om
@@ -271,14 +276,14 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
     for (int a0 = 0; a0 < NA; a0 += NC) {
       const int nc = min(NC, NA - a0);  // this chunk's angles: a0 .. a0 + nc - 1
 
-      // ---- the slab: lf and chi in, coalesced; then f_e, k, xi_e and its slopes at every slab point
+      // ---- the slab: lf and chi in, coalesced; then k, xi_e and its slopes at every slab point
       __syncthreads();  // the previous chunk's slab is consumed
       SlabWalk<kThreads> w(tid, nc);
       for (int e = tid; e < kSlab * nc; e += kThreads, w.next()) {
         const int li = first - 1 + w.row;
         const bool ok = li >= 0 && li < L;
         const size_t src = ok ? row0 + static_cast<size_t>(li) * NA + a0 + w.col : 0;
-        copy_async(fe_s + e, lf + src, ok);
+        copy_async(lf_s + e, lf + src, ok);
         if (e < kThreads * nc) copy_async(chi_s + e, chi + src, ok);
       }
       for (int i = tid; i < kSlab; i += kThreads) {
@@ -295,7 +300,6 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
         const float ks_i = ks_s[i];
         const float cth = cos_sa[a0 + w.col];
         const float k = sqrtf(ks_i * ks_i + kL * kL - 2.0f * ks_i * kL * cth);
-        fe_s[e] = expf(fe_s[e]);
         k_s[e] = k;
         xie_s[e] = ((om_i - omgL) - k * va) / (k * vTe) - ud_vTe;
         xie_slopes(om_i, ks_i, k, omgL, kL, omgpe, cth, c2, &xL_s[e], &xpe_s[e]);
@@ -310,14 +314,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
         // expression), as the owner of that slot may already have put its g_fe there
         const float k = owner ? k_s[e] : sqrtf(ks * ks + kL * kL - 2.0f * ks * kL * cth);
         const float xie = xie_s[e];
-        const float fe = fe_s[e];
+        const float lfv = lf_s[e];
+        const float fe = expf(lfv + lfc_b);
         const float inv_k = __fdividef(1.0f, k);  // not a by-parts or series term: its rounding is free
         const float omgdop = (om - omgL) - k * va;
         const float klde = vTe_over_omgpe * k;
         float rinv = 0.0f, df = 0.0f;
         if (has_next) {
           rinv = 1.0f / (xie_s[e + nc] - xie);
-          df = (fe_s[e + nc] - fe) * rinv;
+          df = fe * expm1f(lf_s[e + nc] - lfv) * rinv;  // f_e[l+1] - f_e[l], as spectrum_tail.cu forms it
         }
         const float chi_v = owner ? chi_s[tid * nc + a] : chi[row0 + static_cast<size_t>(l) * NA + a0 + a];
         const float inv_klde = __fdividef(1.0f, klde);
@@ -444,7 +449,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks(S)) spectrum_tail_bwd_ker
       for (int e = tid; e < owned * nc; e += kThreads, w.next()) {
         const int p = e + nc;  // the owning thread's entry: thread w.row + 1
         const size_t d = static_cast<size_t>(w.row) * NA + w.col;
-        out_lf[d] = (k_s[p] + (t_s[e] - t_s[p])) * fe_s[p];
+        // f_e again from lf, which stays staged for the neighbour's expm1: on the H100 a variant that kept each
+        // owner's f_e in its lf slot (the expm1 taken in the pre-pass) ran ~1 % slower than this expf
+        out_lf[d] = (k_s[p] + (t_s[e] - t_s[p])) * expf(lf_s[p] + lfc_b);
         out_chi[d] = chi_s[p];
       }
     }
@@ -519,7 +526,7 @@ __global__ void spectrum_tail_bwd_finish_kernel(const float* __restrict__ Te, co
 }
 
 struct Args {
-  const float *lf, *chi, *ne, *Te, *lam, *Va, *ud, *A, *Z, *Ti, *fract, *cos_sa, *weight, *omgs, *gauss, *gout;
+  const float *lf, *chi, *ne, *Te, *lam, *Va, *ud, *A, *Z, *Ti, *fract, *cos_sa, *weight, *omgs, *gauss, *lfc, *gout;
   float *g_lf, *g_chi, *g_ne, *g_Te, *g_lam, *g_Va, *g_ud, *g_Z, *g_Ti, *g_fract;
   double* sums;
   int B, G, L, NA;
@@ -535,7 +542,7 @@ int launch(const Args& x) {
   const dim3 grid((x.L + kOwned - 1) / kOwned, x.B);
   spectrum_tail_bwd_kernel<S><<<grid, kThreads, smem, x.stream>>>(
       x.lf, x.chi, x.ne, x.Te, x.lam, x.Va, x.ud, x.A, x.Z, x.Ti, x.fract, x.cos_sa, x.weight, x.omgs, x.gauss,
-      x.gout, x.g_lf, x.g_chi, x.sums, x.G, x.L, x.NA, NC);
+      x.lfc, x.gout, x.g_lf, x.g_chi, x.sums, x.G, x.L, x.NA, NC);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   spectrum_tail_bwd_finish_kernel<S><<<(x.B + 127) / 128, 128, 0, x.stream>>>(
@@ -551,13 +558,14 @@ int launch(const Args& x) {
 extern "C" int spectrum_tail_bwd(const void* lf, const void* chi, const void* ne, const void* Te, const void* lam,
                                  const void* Va, const void* ud, const void* A, const void* Z, const void* Ti,
                                  const void* fract, const void* cos_sa, const void* weight, const void* omgs,
-                                 const void* gauss, const void* gout, void* g_lf, void* g_chi, void* g_ne,
+                                 const void* gauss, const void* lfc, const void* gout, void* g_lf, void* g_chi,
+                                 void* g_ne,
                                  void* g_Te, void* g_lam, void* g_Va, void* g_ud, void* g_Z, void* g_Ti,
                                  void* g_fract, void* sums, int B, int G, int L, int NA, int S, void* stream) {
   const auto f = [](const void* p) { return static_cast<const float*>(p); };
   const auto m = [](void* p) { return static_cast<float*>(p); };
   const Args x{f(lf), f(chi), f(ne), f(Te), f(lam), f(Va), f(ud), f(A), f(Z), f(Ti), f(fract), f(cos_sa),
-               f(weight), f(omgs), f(gauss), f(gout), m(g_lf), m(g_chi), m(g_ne), m(g_Te), m(g_lam), m(g_Va),
+               f(weight), f(omgs), f(gauss), f(lfc), f(gout), m(g_lf), m(g_chi), m(g_ne), m(g_Te), m(g_lam), m(g_Va),
                m(g_ud), m(g_Z), m(g_Ti), m(g_fract), static_cast<double*>(sums), B, G, L, NA,
                static_cast<cudaStream_t>(stream)};
   switch (S) {

@@ -52,12 +52,14 @@ def fit(config, device=None, record=None):
     parameters are ``postprocess.get_final_params``'s dict of numpy arrays (with
     ``"sigmas"`` when ``other.calc_sigmas`` is on).  The stage seconds are
     logged and, with ``record`` (a dict), kept there (``setup_seconds``,
-    ``fit_seconds``, ``postprocess_seconds``) beside the scipy loop's
-    ``scipy`` results per batch and the postprocess's own entries.  ``config``
+    ``fit_seconds``, ``postprocess_seconds``) beside the loop's own record
+    (``scipy``: scipy's results per batch; ``lbfgs``: the device L-BFGS's
+    values, evaluations and step sizes per step) and the postprocess's own
+    entries.  ``config``
     is changed as the JAX package changes it (the lineout pixels, the
     quantities the data pipeline derives).
     """
-    postprocess.refuse_unported(config)  # the angular spectypes, plotting.detailed_breakdown
+    postprocess.refuse_unported(config)  # the angular spectypes
     record = {} if record is None else record
 
     stage_start = time.perf_counter()
@@ -71,8 +73,9 @@ def fit(config, device=None, record=None):
 
     stage_start = time.perf_counter()
     log_info("minimizing")
+    loop_record = record.setdefault("lbfgs" if config["optimizer"]["method"] == "lbfgs" else "scipy", {})
     fitted_weights, overall_loss, loss_fn = one_d_loop(
-        config, all_data, sa, sample_indices, num_batches, device=device, record=record.setdefault("scipy", {})
+        config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
     )
     record["fit_seconds"] = time.perf_counter() - stage_start
     log_info(f"fit: {record['fit_seconds']:.2f} s, overall loss {float(overall_loss):.6g}")

@@ -3,10 +3,11 @@
 Counterpart of ``tsadar_tpu.inverse.loops``: ``_1d_adam_loop_`` (adam epochs
 with best-so-far tracking), ``_1d_scipy_loop_`` (scipy's minimizer on the
 host, ``method: l-bfgs-b`` as the main deck asks, with the loss and its
-gradient from the device), ``one_d_loop`` (the batch dispatch with the
-optional sequential warm start) and ``angular_optax`` with its step loop
+gradient from the device), ``_1d_device_lbfgs_loop_`` (``method: lbfgs``:
+``optax.lbfgs()`` with its zoom line search, transcribed in ``lbfgs.py``, on
+the loss's device), ``one_d_loop`` (the batch dispatch with the optional
+sequential warm start) and ``angular_optax`` with its step loop
 ``_angular_loop_`` (one ARTS image, ``adam`` or ``rmsprop``, early stopping).
-The device L-BFGS (``method: lbfgs``) is not ported yet (ROADMAP.md §1 item 3).
 
 Adam is ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8): the same update as
 ``optax.adam``.  ``optax.rmsprop`` (decay 0.9, eps 1e-8 inside the root, zero
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
+from . import lbfgs
 from .loss import LossFunction, ravel, unravel_into
 
 
@@ -153,16 +155,66 @@ def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, reco
     return float(res["fun"]), ts_params
 
 
+def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None):
+    """``num_epochs`` L-BFGS steps over the flat active parameters of one lineout batch: ``(value, parameters)``.
+
+    The JAX loop's steps: ``optax.lbfgs()`` with the zoom line search
+    (``lbfgs.step``), the value and gradient of each step reused from the line
+    search that ended there.  As there, the value returned is the one at the
+    start of the last step and the parameters are those after it
+    (``num_epochs == 0``: ``(inf, initial parameters)``).  The vector lives on
+    the loss's device in its dtype, in the ``ravel_pytree`` order.  ``record``
+    (a dict), if given, gets per step the value (``losses``), the loss
+    evaluations (``evaluations``) and the step size (``stepsizes``), and the
+    seconds of the loop (``seconds``), one entry a call.
+    """
+    dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
+    ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
+    trainable = get_filter_spec(config["parameters"], ts_params)
+    order = ravel_order(trainable)
+    leaves = [trainable[k] for k in order]
+    batch = loss_fn.device_batch(batch)  # once per fit, not per evaluation
+    evaluations = 0
+
+    def write(x):
+        with torch.no_grad():
+            for p, v in zip(leaves, torch.split(x, [p.numel() for p in leaves])):
+                p.copy_(v.view_as(p))
+
+    def value_and_grad(x):
+        nonlocal evaluations
+        evaluations += 1
+        write(x)
+        (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+        return value, torch.cat([grads[k].reshape(-1) for k in order])
+
+    x = torch.cat([p.detach().reshape(-1) for p in leaves])
+    state, value = lbfgs.init(x), np.inf
+    t0 = time.perf_counter()
+    for _ in range(config["optimizer"]["num_epochs"]):
+        evaluations = 0
+        x, value, state = lbfgs.step(x, state, value_and_grad)
+        if record is not None:
+            record.setdefault("losses", []).append(value)
+            record.setdefault("evaluations", []).append(evaluations)
+            record.setdefault("stepsizes", []).append(state.learning_rate)
+    if record is not None:
+        record.setdefault("seconds", []).append(time.perf_counter() - t0)
+    write(x)
+    for p in leaves:
+        p.grad = None
+    return float(value), ts_params
+
+
 def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dtype=None, record=None):
     """Batched-lineout fitting loop: ``(parameters per batch, summed best loss, loss function)``.
 
-    ``method: adam`` shares one loss function over the batches; a scipy method
-    makes a fresh one per batch, as the JAX loop does, and returns the last.
-    ``record`` (a dict) goes to ``_1d_scipy_loop_``.
+    ``method: adam`` and ``lbfgs`` share one loss function over the batches; a
+    scipy method makes a fresh one per batch, as the JAX loop does, and returns
+    the last.  ``record`` (a dict) goes to ``_1d_scipy_loop_`` or
+    ``_1d_device_lbfgs_loop_``.
     """
     method = config["optimizer"]["method"]
-    if method == "lbfgs":
-        raise NotImplementedError("the device L-BFGS (method: lbfgs) is not ported yet (ROADMAP.md §1 item 3)")
     bs = config["optimizer"]["batch_size"]
     loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
 
@@ -172,6 +224,8 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
         batch = _slice_batch(all_data, batch_indices[i_batch])
         if method == "adam":
             best_loss, best_weights = _1d_adam_loop_(config, loss_fn, previous_weights, batch)
+        elif method == "lbfgs":
+            best_loss, best_weights = _1d_device_lbfgs_loop_(config, loss_fn, previous_weights, batch, record=record)
         else:
             loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
             best_loss, best_weights = _1d_scipy_loop_(config, loss_fn, previous_weights, batch, record=record)

@@ -4,8 +4,11 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
 
 * ``recalculate_with_chosen_weights``: the per-lineout loss, squared deviations
   and fitted spectra of every batch from its fitted parameters
-  (``LossFunction.array_loss``, on the fit's device), and optionally the
-  sigmas;
+  (``LossFunction.array_loss``, on the fit's device), optionally the sigmas,
+  and with ``plotting.detailed_breakdown`` the breakdown of each batch
+  (``ThomsonScatteringDiagnostic.spectrum_breakdown``: the component spectra,
+  the instrument response alone and the model's own wavelength axes, in
+  ``fits[feature]["spec_comps" | "IRF" | "detailed_axis"]``);
 * ``batch_flat_hessian``: the Hessian of the sigma loss over the flat active
   parameters, in the JAX package's ``p * B + i`` layout.  The 1D loss is a sum
   over lineouts and every active leaf is per lineout, so the Hessian is block
@@ -29,9 +32,10 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
 
 Left out: the plots, the CSV and netCDF files, the tracking server and the
 temporary directory (the card's machine has neither matplotlib nor pandas).
-``plotting.detailed_breakdown`` raises (``spectrum_breakdown``, ROADMAP.md §1
-item 5), and so does the angular spectype (§1 item 7).  Timings go into an
-optional ``record`` dict instead of the tracking server.
+The angular spectype raises (ROADMAP.md §1 item 7).  Timings, and the fitted
+spectra with their breakdown, go into an optional ``record`` dict instead of
+the tracking server and the plots.  Where the JAX package logs a breakdown
+that fails and goes on, the port lets the failure stand.
 """
 
 import copy
@@ -48,8 +52,6 @@ from ..console import log_info
 
 def refuse_unported(config):
     """Raise for the postprocess options that are not ported yet, before any work is done."""
-    if config.get("plotting", {}).get("detailed_breakdown", False):
-        raise NotImplementedError("plotting.detailed_breakdown needs spectrum_breakdown, not ported yet (ROADMAP.md §1 item 5)")
     if "angular" in config["other"]["extraoptions"]["spectype"]:
         raise NotImplementedError("the angular postprocess is not ported yet (ROADMAP.md §1 item 7)")
 
@@ -131,6 +133,8 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
         _assign(sqdevs["ion"], inds, sqds["ion"])
         _assign(fits["ele"]["total_spec"], inds, ThryE)
         _assign(fits["ion"]["total_spec"], inds, ThryI)
+        if config.get("plotting", {}).get("detailed_breakdown", False):
+            _breakdown(fits, loss_fn.ts_diag.spectrum_breakdown(fitted_weights[i_batch], batch), inds, e_shape, i_shape)
         if calc_sigma:
             t0 = time.perf_counter()
             try:
@@ -144,6 +148,16 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
         record["recalc_arrayloss_seconds"] = record.get("recalc_arrayloss_seconds", 0.0) + arrayloss_s
         record["recalc_hessian_seconds"] = record.get("recalc_hessian_seconds", 0.0) + hessian_s
     return losses, sqdevs, num_params, fits, sigmas, all_params
+
+
+def _breakdown(fits, breakdown, inds, e_shape, i_shape):
+    """File one batch's ``spectrum_breakdown`` into ``fits`` as the JAX package does: the component stacks and
+    the raw axes by the batch's lineouts, the instrument-only spectra by row."""
+    _, _, ThryE, ThryI, eIRF, iIRF, _, _, lamE_raw, lamI_raw = breakdown
+    for feature, comps, irf, shape, axis in (("ele", ThryE, eIRF, e_shape, lamE_raw), ("ion", ThryI, iIRF, i_shape, lamI_raw)):
+        fits[feature].setdefault("spec_comps", {})[tuple(inds)] = _numpy(comps)
+        _assign(fits[feature].setdefault("IRF", np.zeros(shape)), inds, irf)
+        fits[feature].setdefault("detailed_axis", {})[tuple(inds)] = np.squeeze(_numpy(axis))
 
 
 def _lineout_slice(tree, sl, B):
@@ -277,9 +291,10 @@ def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_
 
 def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, losses_init, record=None):
     """The recalculation with sigmas (``other.calc_sigmas``) and the final parameters; ``record`` gets the
-    losses before and after the refits and the seconds."""
+    losses before and after the refits, the fitted spectra (``fits``, with the breakdown when asked for) and
+    the seconds."""
     t0 = time.perf_counter()
-    losses, _, _, _, sigmas, all_params = recalculate_with_chosen_weights(
+    losses, _, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
         config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], fitted_weights, record
     )
     if len(losses_init) == 0:
@@ -288,7 +303,8 @@ def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_wei
     if config["other"]["calc_sigmas"]:
         final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights[0]), sigmas.T))
     if record is not None:
-        record.update(losses_init=np.asarray(losses_init), losses=losses, postprocessing_seconds=time.perf_counter() - t0)
+        record.update(losses_init=np.asarray(losses_init), losses=losses, fits=fits,
+                      postprocessing_seconds=time.perf_counter() - t0)
     return final_params
 
 
