@@ -55,6 +55,22 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    ``test_imaging_data.py``'s pins, the breakdown finite); and the main deck's
    two lineouts with a pointwise ``Arbitrary1V`` EDF, forward, loss and
    gradient against the CPU float64 path (``arbitrary_1v``);
+   Then the normal entry point, each path with the launch counts read around
+   it: ``python -m tsadar_tpu_torch --cfg configs/1d --mode forward`` in a
+   child process (``cli_forward_subprocess``: rc 0, one finite 1024-point
+   spectrum a feature against the CPU float64 ``forward_pass``, K1, K3, K5
+   and K9 once a feature as the child counts them, the child's wall
+   seconds); ``runner.run`` of
+   ``configs/1d_series`` (``cli_series``: 7 entries of two ion species, each
+   spectrum against the CPU float64 ``forward_pass``, K1, K3, K5 and K9 once
+   an entry and feature, the ``.nc`` files equal to the ``.npz``, ms an
+   entry) and of the ARTS deck ``configs/arts-2d`` in forward mode
+   (``cli_forward_arts``: the layout step and K7 once, the image against the
+   CPU float64 forward); the main deck through ``cli.main`` with sigmas and
+   the export (``cli_main_deck_fit``); and the whole-shot fit of shot 101675
+   (128 lineouts, 200 adam steps, sigmas) through ``runner.run``
+   (``cli_whole_shot_fit``: ``bench_whole_shot.py``'s gates read from the
+   run's CSV and tracker, 128 x 6 finite sigmas, every stage's seconds);
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -1326,7 +1342,7 @@ def arts_other_forward(phase, cfg, sas, kernels, wrappers, plain_f32_tol=None):
 
 def load_real_deck(start, end, skip, batch_size):
     """The whole-shot deck as ``bench_whole_shot.py`` sets it up: lineouts start:end:skip of shot
-    101675, one batch (``load_main_deck``, the raw-data visualizer off)."""
+    101675, one batch (``load_main_deck``)."""
     from tsadar_tpu_torch.inverse.fitter import _lineout_selection
 
     cfg = load_main_deck()
@@ -1670,14 +1686,22 @@ def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
     return launches
 
 
+def deck_pair(*parts):
+    """(defaults, inputs) of the deck directory ``ROOT/parts``."""
+    return [yaml.safe_load((ROOT.joinpath(*parts) / f"{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+
+
+def main_deck_pair():
+    """(defaults, inputs) of the main deck, ``tests/configs/time_test_*.yaml``, as written."""
+    return [yaml.safe_load((ROOT / "tests" / "configs" / f"time_test_{n}.yaml").read_text()) for n in ("defaults", "inputs")]
+
+
 def load_main_deck(**other):
     """The main deck merged as written, with ``other`` set as given.  The deck asks for the raw-data
-    visualizer, which the port does not have (matplotlib): it is switched off."""
+    visualizer, which only draws figures: the port logs that and goes on."""
     from tsadar_tpu_torch.utils.config import merge_configs
 
-    decks = [yaml.safe_load((ROOT / "tests" / "configs" / f"time_test_{n}.yaml").read_text()) for n in ("defaults", "inputs")]
-    cfg = merge_configs(*decks)
-    cfg["data"]["launch_data_visualizer"] = False
+    cfg = merge_configs(*main_deck_pair())
     cfg["other"].update(other)
     return cfg
 
@@ -1885,13 +1909,11 @@ def lbfgs_fit(wrappers, smi, device=None):
 
 def load_iaw_deck(**other):
     """``configs/1d/{defaults,inputs}.yaml`` set as test_1d_iaw_data.py sets them: ps lineouts 535:735:100,
-    ``other`` as given; the raw-data visualizer off."""
+    ``other`` as given."""
     from tsadar_tpu_torch.utils.config import merge_configs
 
-    decks = [yaml.safe_load((ROOT / "configs" / "1d" / f"{n}.yaml").read_text()) for n in ("defaults", "inputs")]
-    cfg = merge_configs(*decks)
+    cfg = merge_configs(*deck_pair("configs", "1d"))
     cfg["data"]["lineouts"].update({"start": 535, "end": 735, "skip": 100})
-    cfg["data"]["launch_data_visualizer"] = False
     cfg["other"].update(other)
     return cfg
 
@@ -2112,6 +2134,363 @@ def arbitrary_1v():
     real_data_grad_check(cfg, sa, all_data, tuple(cfg["data"]["lineouts"]["val"]), "arbitrary_1v_grad_check", f32_rule=True)
 
 
+# ---------------------------------------------------------------- the normal entry point: the CLI and the runner
+
+SERIES_TOL = 5e-3  # of each spectrum's peak: float32 on the card against the CPU float64 series
+SERIES_F32_RATIO = 2.0  # ... or this many times the CPU float32 plain forms' own miss, where that is larger
+WHOLE_SHOT = {"start": 300, "end": 812, "skip": 4}  # e2e_whole_shot.py's lineouts: 128, one batch
+WHOLE_SHOT_OPTIMIZER = {"method": "adam", "num_epochs": 200, "learning_rate": 2e-2, "batch_size": 128}
+WHOLE_SHOT_WINDOW = (500, 508)
+STAGE_METRICS = ("setup_time", "fit_time", "refitting time", "postprocessing time", "plotting time", "postprocess_time",
+                 "total_time")
+FIT_METRICS = ("fit_lossfn_init_time", "fit_param_init_time", "fit_first_dispatch_time")  # the adam loop's parts of fit_time
+# configs/arts-2d names no flm_type for its spherical-harmonic EDF, and both packages need one: the f1 of
+# tests/configs/arts2d_test_inputs.yaml (Mora-Yahi) completes it
+ARTS_FE_PARAMS = {"flm_type": "mora-yahi", "LTx": 225000.0, "LTy": 400000.0}
+
+
+def write_decks(directory, defaults, inputs):
+    directory.mkdir(parents=True, exist_ok=True)
+    for name, deck in (("defaults", defaults), ("inputs", inputs)):
+        (directory / f"{name}.yaml").write_text(yaml.safe_dump(deck))
+    return directory
+
+
+def run_of(runs_dir, run_id):
+    """(the run's directory, its run.json) under a tracker root."""
+    (run_dir,) = [p.parent for p in Path(runs_dir).rglob("run.json") if p.parent.name.endswith(run_id)]
+    return run_dir, json.loads((run_dir / "run.json").read_text())
+
+
+def metric(meta, name):
+    return meta["metrics"][name][-1]["value"]
+
+
+def csv_columns(path):
+    """{column: values} of a CSV in pandas' to_csv layout (index first), numbers as floats."""
+    import csv
+
+    with open(path) as f:
+        rows = list(csv.reader(f))
+    return {name: np.array([float(r[i]) if r[i] else np.nan for r in rows[1:]]) for i, name in enumerate(rows[0]) if i}
+
+
+class tracker_root:
+    """``TSADAR_RUNS_DIR`` (and the export's staging directory) in a fresh temporary directory while the
+    block runs, put back after: the in-process phases leave no run behind for the next."""
+
+    def __enter__(self):
+        import os
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_runs_")
+        self.saved = {k: os.environ.get(k) for k in ("TSADAR_RUNS_DIR", "TSADAR_S3_STAGING_DIR", "MLFLOW_EXPORT")}
+        os.environ["TSADAR_RUNS_DIR"] = str(Path(self.tmp.name) / "runs")
+        os.environ["TSADAR_S3_STAGING_DIR"] = str(Path(self.tmp.name) / "staging")
+        return Path(self.tmp.name)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.tmp.cleanup()
+
+
+# the child of cli_forward_subprocess: the command line as ``python -m tsadar_tpu_torch`` runs it, then the
+# launch counts of the wrappers named in its first argument, on stderr after LAUNCH_MARK.  The counts start at 0
+# with the process, and the forward mode is all the child does.
+LAUNCH_MARK = "chip_smoke launches:"
+CLI_CHILD = f"""
+import importlib, json, runpy, sys
+names = json.loads(sys.argv.pop(1))
+try:
+    runpy.run_module("tsadar_tpu_torch", run_name="__main__", alter_sys=True)
+finally:
+    counts = {{k: getattr(importlib.import_module(m), f).launches for k, (m, f) in names.items()}}
+    print("{LAUNCH_MARK}", json.dumps(counts), file=sys.stderr)
+"""
+
+
+def series_reference(deck, dtype):
+    """The spectra of ``configs/<deck>`` from the port's ``forward_pass`` on the CPU in ``dtype`` (outside any
+    run)."""
+    from tsadar_tpu_torch.forward.calc_series import forward_pass
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    return forward_pass(merge_configs(*deck_pair("configs", deck)), device="cpu", dtype=dtype)
+
+
+def series_misses(card, ref64, ref32):
+    """Each spectrum's miss of the CPU float64 reference as a share of its peak, beside the CPU float32 plain
+    forms' own miss and the limit (SERIES_TOL, or SERIES_F32_RATIO times the float32 miss where larger):
+    (misses, all within the limit)."""
+    peak = np.abs(ref64).max(axis=-1).ravel()
+    card_miss = np.abs(card - ref64).max(axis=-1).ravel() / peak
+    f32_miss = np.abs(ref32 - ref64).max(axis=-1).ravel() / peak
+    limit = np.maximum(SERIES_TOL, SERIES_F32_RATIO * f32_miss)
+    return ({"card": card_miss.tolist(), "cpu_f32": f32_miss.tolist(), "limit": limit.tolist()},
+            bool((card_miss <= limit).all()))
+
+
+def cli_forward_subprocess(wrappers, smi):
+    """``python -m tsadar_tpu_torch --cfg configs/1d --mode forward`` in a child process from the repository
+    root (CLI_CHILD): rc 0; the run's ``binary/electron_data.npz`` and ``ion_data.npz`` each one finite
+    spectrum of 1024 points, held to the CPU float64 ``forward_pass`` of the deck as ``cli_series`` holds its
+    entries; K1, K3, K5 and K9 launched once per feature in the child, nothing else.  The child loads the
+    kernels from ``_build/`` (built above, not rebuilt); its wall seconds hold the interpreter's start, the
+    imports and the kernels' loading."""
+    import os
+
+    import torch
+
+    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    with tracker_root() as tmp:
+        env = dict(os.environ)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "--cfg", "configs/1d", "--mode", "forward"],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
+        launches = json.loads(marks[-1][len(LAUNCH_MARK):]) if marks else None
+        card, meta, ok = {}, None, out.returncode == 0
+        if ok:
+            (run_dir,) = [p.parent for p in (tmp / "runs").rglob("run.json")]
+            for feature in ("electron", "ion"):
+                card[feature] = np.load(run_dir / "artifacts" / "binary" / f"{feature}_data.npz", allow_pickle=True)["Sim"]
+                ok = ok and card[feature].shape == (1, 1, 1024) and bool(np.isfinite(card[feature]).all())
+            meta = json.loads((run_dir / "run.json").read_text())
+            ok = ok and meta["tags"].get("status") == "completed"
+    misses = {}
+    if ok:
+        ref64, ref32 = series_reference("1d", torch.float64), series_reference("1d", torch.float32)
+        for i, feature in enumerate(("electron", "ion")):
+            misses[feature], within = series_misses(card[feature], ref64[i], ref32[i])
+            ok = ok and within
+    want = {k: 2 * int(k in FORWARD_KERNELS) for k in wrappers}
+    ok = ok and launches == want
+    emit({"phase": "cli_forward_subprocess", "rc": out.returncode, "wall_seconds": seconds,
+          "shapes": {k: list(v.shape) for k, v in card.items()}, "misses_of_peak": misses, "tol": SERIES_TOL,
+          "f32_ratio": SERIES_F32_RATIO, "spectrum_calc_time": metric(meta, "spectrum_calc_time") if meta else None,
+          "launches": launches, "launches_want": want, "stderr_tail": out.stderr[-2000:], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_forward_subprocess: rc {out.returncode}, misses {misses}, launches {launches} "
+                           f"(want {want}):\n{out.stderr[-4000:]}")
+    return launches
+
+
+def cli_series(wrappers, smi):
+    """``runner.run("configs/1d_series", "series")`` on the card: 7 entries, each sweeping Z of two ion species
+    (K5 at its two-species instantiation), Te, Ti and ne.  Each entry's electron and ion spectrum against the
+    CPU float64 ``forward_pass`` (SERIES_TOL of its peak, or SERIES_F32_RATIO times the CPU float32 plain
+    forms' own miss where larger); K1, K3, K5 and K9 once per entry and feature, nothing else; the ``.nc``
+    files equal to the ``.npz``; ``spectrum_calc_time`` in run.json; ms per entry."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+    from tsadar_tpu_torch.utils.ncwriter import read_dataset
+
+    record = {}
+    with tracker_root() as tmp:
+        read_and_zero(wrappers)
+        run_id = runner.run(str(ROOT / "configs" / "1d_series"), "series", record=record)
+        torch.cuda.synchronize()
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        card, nc_equal = {}, {}
+        for feature in ("electron", "ion"):
+            base = run_dir / "artifacts" / "binary" / f"{feature}_data"
+            npz = np.load(base.with_suffix(".npz"), allow_pickle=True)
+            card[feature] = npz["Sim"]
+            variables, coords = read_dataset(base.with_suffix(".nc"))
+            nc_equal[feature] = bool(np.array_equal(variables["Sim"], np.squeeze(npz["Sim"]))
+                                     and np.array_equal(coords["Wavelength"], np.squeeze(npz["Wavelength"])))
+    entries = card["electron"].shape[0]
+    ref64, ref32 = series_reference("1d_series", torch.float64), series_reference("1d_series", torch.float32)
+    misses = {}
+    ok = entries == 7 and all(nc_equal.values()) and "spectrum_calc_time" in meta["metrics"]
+    for i, feature in enumerate(("electron", "ion")):
+        misses[feature], within = series_misses(card[feature], ref64[i], ref32[i])
+        ok = ok and card[feature].shape == (7, 1, 1024) and bool(np.isfinite(card[feature]).all()) and within
+    want = {k: 2 * entries * int(k in FORWARD_KERNELS) for k in launches}
+    ok = ok and launches == want
+    ms = [1e3 * s for s in record["entry_seconds"]]
+    emit({"phase": "cli_series", "entries": entries, "species": 2, "misses_of_peak": misses, "tol": SERIES_TOL,
+          "f32_ratio": SERIES_F32_RATIO, "nc_equals_npz": nc_equal, "spectrum_calc_time": metric(meta, "spectrum_calc_time"),
+          "ms_per_entry": ms, "median_ms_per_entry": statistics.median(ms), "median_ms_per_entry_after_first": statistics.median(ms[1:]),
+          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_series: misses {misses}, nc {nc_equal}, launches {launches} (want {want})")
+    return launches
+
+
+def arts_cli_decks():
+    """``configs/arts-2d`` as written, with the spherical-harmonic f1 it leaves unnamed (ARTS_FE_PARAMS)."""
+    defaults, inputs = deck_pair("configs", "arts-2d")
+    inputs["parameters"]["electron"]["fe"]["params"].update(ARTS_FE_PARAMS)
+    return defaults, inputs
+
+
+def cli_forward_arts(wrappers, smi):
+    """``runner.run`` of the ARTS deck (``configs/arts-2d``, its f1 completed) in forward mode on the card: one
+    full image through the chi tables' layout step and K7, each once; the image within FWD_TOL of its peak of
+    the CPU float64 ``forward_pass`` with the card's projection (NUDFT); the angular ``.npz`` and ``.nc``."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+    from tsadar_tpu_torch.core.physics.form_factor import FormFactor
+    from tsadar_tpu_torch.forward.calc_series import forward_pass
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    defaults, inputs = arts_cli_decks()
+    with tracker_root() as tmp:
+        deck = write_decks(tmp / "arts-2d", defaults, inputs)
+        read_and_zero(wrappers)
+        t0 = time.perf_counter()
+        run_id = runner.run(str(deck), "forward")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        binary = run_dir / "artifacts" / "binary"
+        files = sorted(p.name for p in binary.iterdir())
+        image = np.load(binary / "angular_fit_and_data.npz")["fit"]
+    fourier = FormFactor._project_all_fourier
+    FormFactor._project_all_fourier = lambda self, vx, DF, betas: self._project_all_nudft(vx, DF)
+    try:
+        ref = np.squeeze(forward_pass(merge_configs(defaults, inputs), device="cpu")[0])
+    finally:
+        FormFactor._project_all_fourier = fourier
+    err = float(np.abs(image - ref).max() / np.abs(ref).max())
+    want = {k: int(k in ARTS_FWD_KERNELS) for k in launches}
+    present = {"angular_fit_and_data.npz", "fit_and_data.nc", "distribution_function.npz"} <= set(files)
+    ok = launches == want and present and image.shape == ref.shape and bool(np.isfinite(image).all()) and err <= FWD_TOL
+    emit({"phase": "cli_forward_arts", "image": list(image.shape), "max_err_of_peak": err, "tol": FWD_TOL, "files": files,
+          "seconds": seconds, "spectrum_calc_time": metric(meta, "spectrum_calc_time"), "launches": launches,
+          "launches_want": want, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_forward_arts: {err:.3e} of peak, files {files}, launches {launches} (want {want})")
+    return launches
+
+
+def cli_main_deck_fit(wrappers, smi):
+    """The main deck through the command line in-process, ``cli.main(["--cfg", dir, "--mode", "fit"])``: the
+    deck's two files as written but ``calc_sigmas: true``, with ``MLFLOW_EXPORT`` set.  The CSV's pixels 500
+    and 505 within test_1d_data.py's upstream tolerances, ``csv/sigmas.csv`` finite and non-zero,
+    ``binary/ele_fit_and_data.nc``, the stage metrics in the tracker, the export's mirror
+    (``artifacts/<run_id>/...`` and ``ingest-<run_id>-0.txt`` reading ``ready``), and the launches of
+    ``main_deck_fit`` an evaluation (an evaluation is one K6 launch: the postprocess's Hessian runs on the
+    CPU)."""
+    import os
+
+    import torch
+
+    from tsadar_tpu_torch import cli
+
+    defaults, inputs = main_deck_pair()
+    inputs.setdefault("other", {})["calc_sigmas"] = True
+    with tracker_root() as tmp:
+        deck = write_decks(tmp / "main_deck", defaults, inputs)
+        os.environ["MLFLOW_EXPORT"] = "1"
+        read_and_zero(wrappers)
+        t0 = time.perf_counter()
+        run_id = cli.main(["--cfg", str(deck), "--mode", "fit"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        art = run_dir / "artifacts"
+        table = csv_columns(art / "csv" / "learned_parameters.csv")
+        sigmas = csv_columns(art / "csv" / "sigmas.csv")
+        bucket = tmp / "staging" / "remote-mlflow-staging"
+        marker = bucket / f"ingest-{run_id}-0.txt"
+        exported = sorted(str(p.relative_to(bucket / "artifacts" / run_id)) for p in (bucket / "artifacts" / run_id).rglob("*") if p.is_file())
+        gates = {"csv_pixels": table["lineout pixel"].tolist() == [500.0, 505.0],
+                 "upstream_tolerances": all(abs(table[k][0] - val) / val <= tol for k, (val, tol) in MAIN_DECK_TRUTH.items()),
+                 "sigmas": len(sigmas) == 6 and all(np.isfinite(v).all() and (v != 0).all() and len(v) == 2 for v in sigmas.values()),
+                 "nc": (art / "binary" / "ele_fit_and_data.nc").is_file(),
+                 "stage_metrics": all(k in meta["metrics"] for k in STAGE_METRICS) and meta["tags"].get("status") == "completed",
+                 "export": marker.is_file() and marker.read_text() == "ready" and "run.json" in exported
+                 and "artifacts/csv/learned_parameters.csv" in exported and "artifacts/sigmas.nc" in exported}
+    nfev = launches["spectrum_tail_bwd"]
+    gates["launches"], want = deck_fit_launches(launches, nfev, forwards=1)  # the postprocess's array loss: one forward
+    ok = all(gates.values())
+    emit({"phase": "cli_main_deck_fit", "fitted": {k: table[k].tolist() for k in MAIN_DECK_TRUTH}, "truth_and_rtol": MAIN_DECK_TRUTH,
+          "pin_misses": {k: [abs(g - w) / w for g, w in zip(table[k], MAIN_DECK_PINS[k])] for k in MAIN_DECK_PINS},
+          "sigmas": {k: v.tolist() for k, v in sigmas.items()}, "gates": gates, "exported": exported, "nfev": nfev,
+          "stage_seconds": {k: metric(meta, k) for k in STAGE_METRICS}, "seconds": seconds,
+          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_main_deck_fit: gates {gates}, launches {launches} (want {want})")
+    return launches
+
+
+def whole_shot_decks():
+    """The main deck as ``e2e_whole_shot.py`` sets it up: lineouts 300:812:4 (128), adam, 200 epochs, lr 2e-2,
+    one batch of 128, ``calc_sigmas: true``."""
+    defaults, inputs = main_deck_pair()
+    inputs.setdefault("data", {})["lineouts"] = {"type": "pixel", **WHOLE_SHOT}
+    inputs.setdefault("optimizer", {}).update(WHOLE_SHOT_OPTIMIZER)
+    inputs.setdefault("other", {})["calc_sigmas"] = True
+    return defaults, inputs
+
+
+def cli_whole_shot_fit(wrappers, smi):
+    """The whole-shot fit of shot 101675 with sigmas through ``runner.run`` on the card (``e2e_whole_shot.py``'s
+    deck): ``bench_whole_shot.py``'s ``quality_ok`` gates that the run's outputs carry -- Te, ne and m at
+    pixels 500-508 read from ``learned_parameters.csv``, the fit's loss (the tracker's ``overall loss``) under
+    1e-3, the fit (``fit_time``) under 60 s; its median-lineout gate needs the fit's own row losses, which no
+    file of the run holds (``real_data_fit`` keeps that gate), so the postprocess's per-lineout losses are
+    reported beside it -- 128 rows, 128 x 6 finite sigmas; every stage's seconds from the tracker, the
+    float64 Hessian's own from the record; K1-K6 and both K9 modes once a step, the forward kernels once more
+    for the postprocess."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+
+    record = {}
+    with tracker_root() as tmp:
+        deck = write_decks(tmp / "whole_shot", *whole_shot_decks())
+        read_and_zero(wrappers)
+        t0 = time.perf_counter()
+        run_id = runner.run(str(deck), "fit", record=record)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
+        sigmas = csv_columns(run_dir / "artifacts" / "csv" / "sigmas.csv")
+    pix = table["lineout pixel"]
+    sel = (pix >= WHOLE_SHOT_WINDOW[0]) & (pix <= WHOLE_SHOT_WINDOW[1])
+    at = {k: table[f"{k}_electron"][sel].tolist() for k in REAL_TRUTH}
+    sig = np.stack(list(sigmas.values()), axis=1)
+    fit_loss, post_losses = metric(meta, "overall loss"), np.asarray(record["losses"])
+    gates = {**{k: all(abs(v - val) / val <= tol for v in at[k]) for k, (val, tol) in REAL_TRUTH.items()},
+             "covered": int(sel.sum()) > 0, "final_loss": fit_loss < REAL_LOSS_CEILING,
+             "fit_time": metric(meta, "fit_time") < REAL_FIT_SECONDS}
+    steps = WHOLE_SHOT_OPTIMIZER["num_epochs"]
+    want = {k: (steps + int(k in FORWARD_KERNELS)) * int(k in REAL_FIT_KERNELS) for k in launches}
+    checks = {"quality_ok": all(gates.values()), "rows": len(pix) == 128, "sigmas": sig.shape == (128, 6) and bool(np.isfinite(sig).all()),
+              "launches": launches == want}
+    ok = all(checks.values())
+    emit({"phase": "cli_whole_shot_fit", "lineouts": len(pix), "at_pixels_500_508": at, "truth_and_tol": REAL_TRUTH,
+          "gates": gates, "quality_ok": all(gates.values()), "checks": checks, "fit_loss": fit_loss,
+          "postprocess_lineout_loss_median": float(np.median(post_losses)), "postprocess_lineout_loss_worst": float(post_losses.max()),
+          "sigmas_shape": list(sig.shape), "sigma_median_abs": {k: float(np.median(np.abs(v))) for k, v in sigmas.items()},
+          "stage_seconds_tracker": {k: metric(meta, k) for k in STAGE_METRICS + FIT_METRICS},
+          "stage_seconds_record": {k: record[k] for k in ("setup_seconds", "fit_seconds", "refit_seconds", "recalc_arrayloss_seconds",
+                                                          "recalc_hessian_seconds", "postprocessing_seconds", "artifact_seconds",
+                                                          "postprocess_seconds")},
+          "hessian_cpu_f64_seconds": record["recalc_hessian_seconds"], "seconds": seconds,
+          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_whole_shot_fit: checks {checks}, gates {gates}, at 500-508 {at}, launches {launches} (want {want})")
+    return launches
+
+
 # (source, the TPU kernel it replaces, which of the repo's ten TPU kernels); K9's transposed mode and
 # K10's table cotangent have no TPU kernel of their own: they stand beside the kernel they belong to
 KERNELS = {
@@ -2247,6 +2626,15 @@ def main():
     path_launches["shot_111411_fit"] = shot_111411_fit(wrappers, smi)
     path_launches["imaging_112059_fit"] = imaging_112059_fit(wrappers, smi)
     arbitrary_1v()
+
+    # 4d. this slice's paths: the normal entry point -- the command line in a child process (forward), the
+    # runner's series and ARTS forward, the main deck through cli.main with sigmas and the export, and the
+    # whole-shot fit of shot 101675 with sigmas through runner.run
+    path_launches["cli_forward_subprocess"] = cli_forward_subprocess(wrappers, smi)
+    path_launches["cli_series"] = cli_series(wrappers, smi)
+    path_launches["cli_forward_arts"] = cli_forward_arts(wrappers, smi)
+    path_launches["cli_main_deck_fit"] = cli_main_deck_fit(wrappers, smi)
+    path_launches["cli_whole_shot_fit"] = cli_whole_shot_fit(wrappers, smi)
 
     with torch.no_grad():
         # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels

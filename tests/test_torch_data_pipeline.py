@@ -44,6 +44,7 @@ from tsadar_tpu_torch.utils.data_handling.hdf4 import read_sds
 from tsadar_tpu_torch.utils.data_handling.load_ts_data import DATA_DIR, loadData
 from tsadar_tpu_torch.utils.process.correct_throughput import correctThroughput
 from tsadar_tpu_torch.utils.process.evaluate_background import get_shot_bg
+from tsadar_tpu_torch.utils.process import prepare
 from tsadar_tpu_torch.utils.process.prepare import prepare_data
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,15 +195,28 @@ def test_prepare_data(prepared):
         _same(cfg["data"]["lineouts"][key], jcfg["data"]["lineouts"][key], key)
 
 
-@pytest.mark.parametrize("option", ["estimate_lineouts_epw", "launch_data_visualizer"])
+@pytest.mark.parametrize("option", ["estimate_lineouts_epw"])
 def test_options_needing_cv2_or_matplotlib_raise(option):
     cfg = _deck(500, 510, 5, 2)
-    if option == "launch_data_visualizer":
-        cfg["data"][option] = True
-    else:
-        cfg["feature_detector"][option] = True
+    cfg["feature_detector"][option] = True
     with pytest.raises(NotImplementedError, match="not ported"):
         prepare_data(cfg, 101675)
+
+
+def test_the_visualizer_is_logged_and_skipped(monkeypatch):
+    """The raw-data visualizer draws figures only: the port logs one line for it and prepares the same data
+    as with it off."""
+    lines = []
+    monkeypatch.setattr(prepare, "log_info", lines.append)
+    cfg = _deck(500, 510, 5, 2)
+    cfg["data"]["launch_data_visualizer"] = True
+    with same_scipy_fits():  # the streak background's fit lands on one of two mirror solutions (module docstring)
+        off = prepare_data(_deck(500, 510, 5, 2), 101675)
+        assert not any("visualizer" in ln for ln in lines)
+        on = prepare_data(cfg, 101675)
+    assert [ln for ln in lines if "visualizer" in ln] == [
+        "data.launch_data_visualizer: the port produces no figures; the raw-data visualizer is skipped"]
+    np.testing.assert_equal(on, off)
 
 
 def test_multiplexed_shots_raise():

@@ -49,7 +49,9 @@ def test_importing_the_port_loads_no_jax():
         "from tsadar_tpu_torch.inverse import fitter, loops, loss\n"
         "from tsadar_tpu_torch.core.params import distributions, spherical, ts_params\n"
         "from tsadar_tpu_torch.core.physics import form_factor, interp, irf, spectrum\n"
-        "from tsadar_tpu_torch.utils import calibration, console\n"
+        "from tsadar_tpu_torch import cli, queue, runner\n"
+        "from tsadar_tpu_torch.forward import calc_series\n"
+        "from tsadar_tpu_torch.utils import artifacts, calibration, console, export, mlflow_shim, ncwriter, schema\n"
         "from tsadar_tpu_torch.utils.data_handling import hdf4, load_ts_data\n"
         "from tsadar_tpu_torch.utils.process import correct_throughput, evaluate_background, lineouts, prepare, warpcorr\n"
         f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"

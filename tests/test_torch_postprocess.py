@@ -49,6 +49,7 @@ from tsadar_tpu.utils.data_handling.calibration import get_scattering_angles as 
 from tsadar_tpu.utils.process import postprocess as jpp
 import tsadar_tpu_torch as port
 from tsadar_tpu_torch.convert import thomson_params_from_partitions
+from tsadar_tpu_torch.utils import artifacts
 from tsadar_tpu_torch.utils.process import postprocess as ppp
 
 from .torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
@@ -118,11 +119,11 @@ def test_recalculate_with_chosen_weights_matches_jax():
     # the final parameters: the JAX package's keys, lineout pixels and x axis first; sigma names by leaf
     cfg["data"] = {"lineouts": {"pixelE": [10, 11, 12, 13], "pixelI": [1, 2, 3, 4]}}
     axes = {"x_label": "Time (ps)", "epw_x": np.arange(20) * 2.0, "iaw_x": np.arange(20) * 3.0}
-    final = ppp.get_final_params(cfg, g_params, axes)  # the deck loads the ion spectrum: its pixels lead
+    final = artifacts.get_final_params(cfg, g_params, axes)  # the deck loads the ion spectrum: its pixels lead
     assert list(final)[:2] == ["lineout pixel", "Time (ps)"]
     np.testing.assert_array_equal(final["Time (ps)"], [3.0, 6.0, 9.0, 12.0])
     cfg["other"]["extraoptions"]["load_ion_spec"] = False
-    np.testing.assert_array_equal(ppp.get_final_params(cfg, g_params, axes)["lineout pixel"], [10, 11, 12, 13])
+    np.testing.assert_array_equal(artifacts.get_final_params(cfg, g_params, axes)["lineout pixel"], [10, 11, 12, 13])
     assert sorted(list(final)[2:]) == sorted(f"{k}_{g}" for g, d in w_params.items() for k in d)
     names = ppp.sigma_names(cfg, weights[0][1])
     assert names == ["electron.Te", "electron.ne", "electron.m", "general.amp1", "general.amp2", "general.lam"]

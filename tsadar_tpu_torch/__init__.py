@@ -4,7 +4,9 @@ A port of ``tsadar_tpu`` (JAX on a TPU) that imports nothing of it: plain
 tensor code in PyTorch, and every TPU kernel on the ported path rewritten by
 hand in CUDA C++ for Hopper (``csrc/``, built by nvcc at first use).  Entry
 points run on the GPU unless the caller asks for ``device="cpu"``, where the
-plain PyTorch forms of the kernels run in float64.
+plain PyTorch forms of the kernels run in float64.  The command line is
+``python -m tsadar_tpu_torch --cfg <dir> --mode {fit,forward,series}``
+(``cli.py``, ``runner.py``).
 """
 
 from .core.diagnostic import ThomsonScatteringDiagnostic

@@ -14,6 +14,11 @@ Adam is ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8): the same update as
 initial scale) is not ``torch.optim.RMSprop`` (eps outside the root): it is
 ``RMSprop`` below.  The whole lineout batch is one set of [B] parameters, so
 one step is one forward and one backward of the batch; there is no mesh.
+
+The loops log to the tracker (``utils.mlflow_shim``) what the JAX loops log:
+``fit_lossfn_init_time`` (the loss function's set-up), ``batch loss`` per
+batch, and in the adam loop ``fit_param_init_time``,
+``fit_first_dispatch_time`` and ``fit_final_loss_time``.
 """
 
 import copy
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
+from ..utils import mlflow_shim as mlflow
 from . import lbfgs
 from .loss import LossFunction, ravel, unravel_into
 
@@ -63,7 +69,13 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
     ``record["losses"]`` gets every step's pre-update loss and
     ``record["chunk_seconds"]`` / ``record["chunk_steps"]`` the host time of
     each chunk, synchronized at its end.
+
+    The tracker gets ``fit_param_init_time`` (the parameters' and the
+    optimizer's set-up), ``fit_first_dispatch_time`` (the first step, read
+    back: the kernels' loading, and their build where none is cached, falls
+    in it) and, with ``per_lineout``, ``fit_final_loss_time``.
     """
+    t_enter = time.perf_counter()
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
     trainable = get_filter_spec(config["parameters"], ts_params)
@@ -82,11 +94,13 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
 
     chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
     done = 0
+    mlflow.log_metrics({"fit_param_init_time": round(time.perf_counter() - t_enter, 2)})
     while done < num_epochs:
         length = min(chunk, num_epochs - done)
         t0 = time.perf_counter()
         values = []
         for _ in range(length):
+            t_first = time.perf_counter() if done == 0 and not values else None
             (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
             for p, g in zip(leaves, grads.values()):
                 p.grad = g
@@ -99,6 +113,9 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
                     best_rows = torch.where(improved, aux[2], best_rows)
                 best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
             values.append(value)
+            if t_first is not None:
+                float(value)  # the first step, read back
+                mlflow.log_metrics({"fit_first_dispatch_time": round(time.perf_counter() - t_first, 2)})
         if record is not None:
             losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
             record.setdefault("losses", []).extend(losses)
@@ -111,7 +128,9 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
             p.copy_(b)
         if per_lineout:
             # the assembled parameters mix epochs per lineout: report their actual joint loss
-            best_loss = loss_fn.__loss__(ts_params, batch)[0]
+            t0 = time.perf_counter()
+            best_loss = float(loss_fn.__loss__(ts_params, batch)[0])
+            mlflow.log_metrics({"fit_final_loss_time": round(time.perf_counter() - t0, 2)})
     for p in leaves:
         p.grad = None
     return float(best_loss), ts_params
@@ -216,7 +235,9 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
     """
     method = config["optimizer"]["method"]
     bs = config["optimizer"]["batch_size"]
+    t0 = time.perf_counter()
     loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
+    mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t0, 2)})
 
     batch_indices = np.reshape(batch_indices, (-1, bs))
     all_weights, overall_loss, previous_weights = [], 0.0, None
@@ -230,6 +251,7 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
             loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
             best_loss, best_weights = _1d_scipy_loop_(config, loss_fn, previous_weights, batch, record=record)
         all_weights.append(best_weights)
+        mlflow.log_metrics({"batch loss": float(best_loss)}, step=i_batch)
         overall_loss += best_loss
         if config["optimizer"].get("sequential", False):
             previous_weights = best_weights
@@ -280,9 +302,10 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     The set-up of the JAX loop, then ``_angular_loop_``.  ``config`` is changed
     as there: batch size 1, and the lineout window divided by
     ``other.ang_res_unit``.  The parameters are unbatched, made from the deck.
-    Checkpoints, state snapshots and the tracking server's metrics are left
-    out.  ``record``: see ``_angular_loop_``.
+    Checkpoints, state snapshots and the per-epoch metrics are left out; the
+    tracker gets ``fit_lossfn_init_time``.  ``record``: see ``_angular_loop_``.
     """
+    t_enter = time.perf_counter()
     config["optimizer"]["batch_size"] = 1
     lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
     lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
@@ -291,6 +314,7 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     batch = _angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
 
     loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
+    mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t_enter, 2)})
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     ts_params = ThomsonParams.create(config["parameters"], 1, activate=True, device=dev, dtype=dtype, batch=False)
     epoch_loss = _angular_loop_(config, loss_fn, ts_params, batch, record=record)

@@ -28,17 +28,26 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
   fitted values, and a better refit is written into the lineout's own
   (batch, slot) -- the JAX package's correction of upstream's (i - 1) // bs;
 * ``postprocess`` and ``process_data``: the refits, then the recalculation,
-  and ``get_final_params``.
+  the final parameters, and the run's files (``utils.artifacts``: the CSVs of
+  the fitted parameters and the sigmas, the data and fits as ``.npz`` and
+  ``.nc``), written into a temporary directory with ``csv/`` and ``binary/``
+  and logged to the tracker (``utils.mlflow_shim``) with the JAX package's
+  metric names and status tags: ``number of fits``, ``number of refits``,
+  ``refitting time``, ``recalc_arrayloss_time``, ``recalc_hessian_time``,
+  ``postprocessing time`` (refits and recalculation, the Hessian inside it),
+  ``plotting time`` (the writing of the files; the name is kept so that
+  dashboards line up) and the tags ``plotting`` and ``done plotting``.
 
-Left out: the plots, the CSV and netCDF files, the tracking server and the
-temporary directory (the card's machine has neither matplotlib nor pandas).
-The angular spectype raises (ROADMAP.md §1 item 7).  Timings, and the fitted
-spectra with their breakdown, go into an optional ``record`` dict instead of
-the tracking server and the plots.  Where the JAX package logs a breakdown
-that fails and goes on, the port lets the failure stand.
+Left out: the figures (the card's machine has no matplotlib).  The angular
+spectype raises (ROADMAP.md §1 item 7).  Timings, and the fitted spectra with
+their breakdown, also go into an optional ``record`` dict, unrounded.  Where
+the JAX package logs a breakdown that fails and goes on, the port lets the
+failure stand.
 """
 
 import copy
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -46,6 +55,8 @@ import torch
 
 from ...core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
 from ...core.physics.interp import plain_forms
+from .. import artifacts
+from .. import mlflow_shim as mlflow
 from ..config import flatten, unflatten
 from ..console import log_info
 
@@ -144,6 +155,7 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
                 log_info(f"Error calculating Hessian ({e}); skipping uncertainties")
                 calc_sigma = False
             hessian_s += time.perf_counter() - t0
+    mlflow.log_metrics({"recalc_arrayloss_time": round(arrayloss_s, 2), "recalc_hessian_time": round(hessian_s, 2)})
     if record is not None:
         record["recalc_arrayloss_seconds"] = record.get("recalc_arrayloss_seconds", 0.0) + arrayloss_s
         record["recalc_hessian_seconds"] = record.get("recalc_hessian_seconds", 0.0) + hessian_s
@@ -232,6 +244,8 @@ def refit_bad_fits(config, sa, batch_indices, all_data, loss_fn, fitted_weights,
     bs = config["optimizer"]["batch_size"]
     bad = batch_indices.flatten()[losses_init > config["other"]["refit_thresh"]]
     log_info(f"{len(batch_indices.flatten())} fits, {len(bad)} refits")
+    mlflow.log_metrics({"number of fits": len(batch_indices.flatten())})
+    mlflow.log_metrics({"number of refits": len(bad)})
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     for i in bad:
         if i == 0:
@@ -278,34 +292,62 @@ def _write_slot(tgt, src, slot, bs):
 
 
 def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record=None):
-    """The refits (``other.refit``), then ``process_data``: the final parameters (``get_final_params``)."""
+    """The refits (``other.refit``), then ``process_data``: the final parameters
+    (``utils.artifacts.get_final_params``), with the run's files written into a temporary directory and logged
+    as the run's artifacts.  Outside a run the tracker would drop them: no file is written."""
     refuse_unported(config)
     t0 = time.perf_counter()
     init_losses = []
     if config["other"]["refit"]:
         init_losses = refit_bad_fits(config, sa, sample_indices, all_data, loss_fn, fitted_weights, record)
+    refit_seconds = time.perf_counter() - t0
+    mlflow.log_metrics({"refitting time": round(refit_seconds, 2)})
     if record is not None:
-        record["refit_seconds"] = time.perf_counter() - t0
-    return process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, init_losses, record)
+        record["refit_seconds"] = refit_seconds
+    if mlflow.active_run() is None:
+        t1, final_params = process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa,
+                                        init_losses, t0, None, record)
+    else:
+        with tempfile.TemporaryDirectory() as td:
+            for dirname in ("binary", "csv"):
+                os.makedirs(os.path.join(td, dirname), exist_ok=True)
+            t1, final_params = process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa,
+                                            init_losses, t0, td, record)
+            mlflow.log_artifacts(td)
+    writing_seconds = time.perf_counter() - t1
+    mlflow.log_metrics({"plotting time": round(writing_seconds, 2)})
+    mlflow.set_tag("status", "done plotting")
+    if record is not None:
+        record["artifact_seconds"] = writing_seconds
+    return final_params
 
 
-def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, losses_init, record=None):
-    """The recalculation with sigmas (``other.calc_sigmas``) and the final parameters; ``record`` gets the
+def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, losses_init, t1, td, record=None):
+    """The recalculation with sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None,
+    the files of ``utils.artifacts`` in ``td``: ``(the time the files' writing began, final parameters)``.  ``t1`` is the
+    ``perf_counter`` time the postprocess began: ``postprocessing time`` runs from it.  ``record`` gets the
     losses before and after the refits, the fitted spectra (``fits``, with the breakdown when asked for) and
-    the seconds."""
+    the seconds of the recalculation."""
     t0 = time.perf_counter()
     losses, _, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
         config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], fitted_weights, record
     )
     if len(losses_init) == 0:
         losses_init = losses
-    final_params = get_final_params(config, all_params, all_axes)
-    if config["other"]["calc_sigmas"]:
-        final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights[0]), sigmas.T))
+    mlflow.log_metrics({"postprocessing time": round(time.perf_counter() - t1, 2)})
+    mlflow.set_tag("status", "plotting")
     if record is not None:
         record.update(losses_init=np.asarray(losses_init), losses=losses, fits=fits,
                       postprocessing_seconds=time.perf_counter() - t0)
-    return final_params
+    t_files = time.perf_counter()
+    names = sigma_names(config, fitted_weights[0])
+    final_params = artifacts.get_final_params(config, all_params, all_axes, td)
+    if td is not None:
+        artifacts.plot_ts_data(config, fits, all_data, all_axes, td)
+        artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
+    if config["other"]["calc_sigmas"]:
+        final_params["sigmas"] = dict(zip(names, sigmas.T))
+    return t_files, final_params
 
 
 def sigma_names(config, weights):
@@ -317,28 +359,3 @@ def sigma_names(config, weights):
         group = f"ion-{int(parts[1]) + 1}" if parts[0] == "ions" else parts[0]
         names.append(f"{group}.{'m' if parts[-1] == 'normed_m' else parts[-1]}")
     return names
-
-
-def get_final_params(config, all_params, all_axes):
-    """The fitted parameters by lineout as numpy arrays, ``"{param}_{species}"``, led by ``"lineout pixel"`` and
-    the data's x-axis label (the JAX package's ``plotters.get_final_params`` without pandas and files); a
-    pointwise EDF comes as ``"fe"``."""
-    params, dist = {}, {}
-    for species, values in all_params.items():
-        for k, v in values.items():
-            if k in ("fe", "f"):
-                dist["fe"] = np.squeeze(np.asarray(v))
-            elif k != "flm":
-                params[k + "_" + species] = np.asarray(v).reshape(-1)
-    lead = {}
-    try:
-        opts = config["other"]["extraoptions"]
-        if opts["load_ion_spec"]:
-            pixels = config["data"]["lineouts"]["pixelI"]
-            lead = {"lineout pixel": np.asarray(pixels), all_axes["x_label"]: np.asarray(all_axes["iaw_x"][pixels])}
-        elif opts["spectype"] != "angular_full":
-            pixels = config["data"]["lineouts"]["pixelE"]
-            lead = {"lineout pixel": np.asarray(pixels), all_axes["x_label"]: np.asarray(all_axes["epw_x"][pixels])}
-    except (KeyError, IndexError, TypeError):
-        lead = {}
-    return lead | params | dist

@@ -6,10 +6,11 @@ throughput-correct, build the shot background, then either extract lineouts
 (angular_full fits). Mutates ``config`` with the derived quantities the fit
 stage reads back (IRF widths, wavelength ranges, npts, lineout pixels).
 
-Two options of the JAX package raise ``NotImplementedError`` here: the CV
-feature detector (``feature_detector.estimate_lineouts_*``, which needs
-``cv2``) and the raw-data visualizer (``data.launch_data_visualizer``, which
-needs matplotlib).  The lineout pixels come from ``data.lineouts.val``
+The CV feature detector (``feature_detector.estimate_lineouts_*``, which
+needs ``cv2`` and changes the lineouts) raises ``NotImplementedError`` here.
+The raw-data visualizer (``data.launch_data_visualizer``) only draws figures
+(matplotlib), which the port leaves out everywhere: it is logged and
+skipped.  The lineout pixels come from ``data.lineouts.val``
 (``inverse.fitter._lineout_selection``).
 """
 
@@ -64,12 +65,13 @@ def _block_means_2d(image, row_width, col_width):
 
 
 def _check_unported_options(config):
-    """The CV feature detector (``cv2``) and the raw-data visualizer (matplotlib) are not ported."""
+    """The CV feature detector (``cv2``) is not ported and raises; the raw-data visualizer draws figures only,
+    which the port does not produce: it is logged and skipped."""
     fd = config.get("feature_detector", {})
     if fd.get("estimate_lineouts_iaw", False) or fd.get("estimate_lineouts_epw", False):
         raise NotImplementedError("the lineout feature detector (feature_detector.estimate_lineouts_*) is not ported")
     if config["data"].get("launch_data_visualizer", False):
-        raise NotImplementedError("the raw-data visualizer (data.launch_data_visualizer) is not ported: set it to false")
+        log_info("data.launch_data_visualizer: the port produces no figures; the raw-data visualizer is skipped")
 
 
 def _trim_to_batch_multiple(config):
