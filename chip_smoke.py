@@ -71,6 +71,16 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    (128 lineouts, 200 adam steps, sigmas) through ``runner.run``
    (``cli_whole_shot_fit``: ``bench_whole_shot.py``'s gates read from the
    run's CSV and tracker, 128 x 6 finite sigmas, every stage's seconds);
+   Then the ARTS fits from real data: the ARTS 1V deck as ``e2e_arts.py`` runs it
+   (the ATS image of shot 94475, adam 200 epochs, sigmas) through ``runner.run``
+   with checkpoints and a resumed fit (``cli_arts_1v_fit``: ``e2e_arts.py``'s
+   gates, K1-K4, K9 and K9ᵀ once a step), its first batch's loss and gradient
+   against the CPU float64 path (``arts_1v_real_grad_check``), the 2V deck's
+   128 x 128 pointwise EDF on the same image through ``fitter.fit``
+   (``arts_2v_real_fit``: rmsprop at 1e-3, 120 epochs, the Hessian skipped past its
+   budget, the layout step, K7 and K8 once a step) and the multiplexed two-shot
+   fit of shots 94475 and 94477 (``arts_multiplex``: loss and gradient against
+   the CPU float64 path, 40 adam steps, the chi kernels twice a step);
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -2491,6 +2501,341 @@ def cli_whole_shot_fit(wrappers, smi):
     return launches
 
 
+# The ARTS fit through the normal entry point (e2e_arts.py's deck: the ATS image of shot 94475, background slice
+# 94477), the 2V deck's pointwise EDF on the same real image, and the multiplexed two-shot loss (shots 94475, 94477)
+ARTS_1V_EPOCHS = 200
+ARTS_1V_LR = 5e-3
+ARTS_1V_DROP = 0.7  # e2e_arts.py's gate: the best epoch loss under this share of the first
+ARTS_1V_MIN_EPOCHS = 20  # e2e_arts.py's gate: epochs counted before any early stop
+ARTS_1V_CKPT_FREQ = 50
+ARTS_RESUME_EPOCHS = 8  # the epochs a resumed fit is asked for beyond its checkpoint
+ARTS_REAL_DATA = {"shotnum": 94475, "background": {"type": "Fit", "slice": 94477}}  # the ARTS 1V deck's
+ARTS_2V_REAL_EPOCHS = 120
+# rmsprop, the deck's method, at a tenth of the deck's lr: at 1e-2 the loss on this image rises from the first step
+# in float64 on the CPU as on the card (0.879 -> 1.87 in 7 epochs, then the early stop); at 1e-3 it falls
+ARTS_2V_REAL_LR = 1e-3
+ARTS_2V_NVX = 128
+ARTS_HESSIAN_SKIPPED = "{} active parameters exceed the hessian budget (2048)"  # the JAX package's message
+MULTIPLEX_SHOTS = [94475, 94477]
+MULTIPLEX_ROT = 25.0  # tests/test_inverse/test_multiplex.py's shot_rot
+MULTIPLEX_STEPS = 40
+MULTIPLEX_LR = 1e-3
+ARTS_1V_KERNELS = ("lin_lookup_fwd", "lin_lookup_bwd", "cubic_lookup_fwd", "cubic_lookup_bwd", "pv_tables_fwd", "pv_tables_bwd")
+ARTS_1V_STAGES = ("setup_time", "fit_lossfn_init_time", "fit_first_dispatch_time", "fit_time", "postprocessing time",
+                  "postprocess_time", "total_time")
+
+
+def arts_1v_decks(epochs=None, calc_sigmas=True, **optimizer):
+    """(defaults, inputs) of the ARTS 1V deck as ``e2e_arts.py:41-52`` sets it: adam at lr 5e-3 for ``epochs``
+    epochs, ``calc_sigmas``, the raw-data visualizer off; ``optimizer`` adds to the deck's optimizer."""
+    defaults, inputs = (yaml.safe_load((ROOT / "tests" / "configs" / f"arts1v_test_{n}.yaml").read_text())
+                        for n in ("defaults", "inputs"))
+    inputs.setdefault("optimizer", {}).update(method="adam", num_epochs=epochs or ARTS_1V_EPOCHS, learning_rate=ARTS_1V_LR,
+                                              **optimizer)
+    inputs.setdefault("other", {})["calc_sigmas"] = calc_sigmas
+    inputs.setdefault("data", {})["launch_data_visualizer"] = False
+    return defaults, inputs
+
+
+def arts_2v_real_deck():
+    """The ARTS 2V deck (``tests/configs/arts2v_test_defaults.yaml`` + ``arts2d_test_inputs.yaml``) with the EDF
+    ``bench_arts.py:33-43`` trains (``Arbitrary2V`` 128 x 128, ``init_m`` 2.5, ``learn_log``), on the ARTS 1V deck's
+    real data (its own shots 10007 and 10002 are not in the repository): the deck's CCD, ``ang_res_unit`` 10,
+    rmsprop at ARTS_2V_REAL_LR, ARTS_2V_REAL_EPOCHS epochs, ``calc_sigmas``."""
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    cfg = merge_configs(*[yaml.safe_load((ROOT / "tests" / "configs" / n).read_text()) for n in ARTS_2V_DECK])
+    cfg["parameters"]["electron"]["fe"].update(type="arbitrary", dim=2, nvx=ARTS_2V_NVX, params={"init_m": 2.5, "learn_log": True})
+    cfg["data"].update(copy.deepcopy(ARTS_REAL_DATA), launch_data_visualizer=False)
+    cfg["optimizer"].update(num_epochs=ARTS_2V_REAL_EPOCHS, learning_rate=ARTS_2V_REAL_LR)
+    cfg["other"]["calc_sigmas"] = True
+    return cfg
+
+
+def angular_window(cfg):
+    """The image's lineout window in resolution units, with ``cfg`` changed as ``angular_optax`` changes it."""
+    cfg["optimizer"]["batch_size"] = 1
+    lineouts, unit = cfg["data"]["lineouts"], cfg["other"]["ang_res_unit"]
+    lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
+    return slice(lineouts["start"], lineouts["end"])
+
+
+def cpu_nudft(loss_fn):
+    """``loss_fn`` with its CPU diagnostic projecting by NUDFT, as the card does (``arts_models``)."""
+    ff = loss_fn.ts_diag.model.electron_form_factor
+    if loss_fn.ts_diag.device.type == "cpu" and loss_fn.ts_diag.model.dim == 2:
+        ff._project_all_fourier = lambda vx, DF, betas: ff._project_all_nudft(vx, DF)
+    return loss_fn
+
+
+def card_against_cpu(phase, cfg, sa, batch, wrappers, f32_rule=True):
+    """Loss and gradient of ``batch`` at the deck's start values: the card (float32, kernels) against the port's CPU
+    float64 plain path, the loss to LOSS_TOL and each gradient to GRAD_TOL of its largest entry; with ``f32_rule``
+    the CPU float32 plain path runs too, and where float32 itself misses more, the card is held to GRAD_F32_RATIO
+    times that miss: on the ARTS 1V deck float32 misses its resonance by ~3e-2 of peak, and the gradients of ne and
+    lam by 0.66 and ~20 times themselves, in the JAX package's float32 path as in the port's
+    (``tests/test_torch_arts_fit.py``); a gradient float32 misses by more than itself is reported as lost.  Returns
+    the card's launches."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+
+    results = {}
+    runs = (("f64", "cpu", None), ("card", "cuda", None)) + ((("f32", "cpu", torch.float32),) if f32_rule else ())
+    for name, device, dtype in runs:
+        loss_fn = cpu_nudft(LossFunction(cfg, sa, batch.get("b1", batch), device=device, dtype=dtype))
+        params = ThomsonParams.create(cfg["parameters"], 1, activate=True, device=device, dtype=loss_fn.ts_diag.dtype, batch=False)
+        read_and_zero(wrappers)
+        (value, _), grads = loss_fn.value_and_grad(params, batch)
+        results[name] = float(value), {k: g.double().cpu() for k, g in grads.items()}, read_and_zero(wrappers)
+    (loss_ref, g_ref, _), (loss, g_card, launches) = results["f64"], results["card"]
+    miss = lambda g: {k: float((g[k] - g_ref[k]).abs().max() / g_ref[k].abs().max()) for k in g_ref}  # noqa: E731
+    loss_err, report = abs(loss - loss_ref) / abs(loss_ref), miss(g_card)
+    loss_limit, limits, extra = LOSS_TOL, {k: GRAD_TOL for k in g_ref}, {}
+    if f32_rule:
+        f32_loss, f32 = abs(results["f32"][0] - loss_ref) / abs(loss_ref), miss(results["f32"][1])
+        loss_limit = max(LOSS_TOL, GRAD_F32_RATIO * f32_loss)
+        limits = {k: max(GRAD_TOL, GRAD_F32_RATIO * f32[k]) for k in g_ref}
+        extra = {"plain_f32_cpu_loss_rel_err": f32_loss, "plain_f32_cpu_grad_err_of_max": f32, "loss_limit": loss_limit,
+                 "grad_limits": limits, "grad_f32_ratio": GRAD_F32_RATIO,
+                 "lost_to_float32": sorted(k for k in f32 if f32[k] >= GRAD_ZERO_MISS)}
+    finite = all(bool(torch.isfinite(g).all()) for g in g_card.values())
+    ok = finite and loss_err <= loss_limit and all(report[k] <= limits[k] for k in report)
+    emit({"phase": phase, "image": list(np.shape(batch.get("b1", batch)["e_data"])), "multiplexed": "b1" in batch,
+          "loss": loss, "loss_f64_cpu": loss_ref, "loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
+          "grad_err_of_max": report, "grad_tol": GRAD_TOL, "grad_shapes": {k: list(g.shape) for k, g in g_ref.items()},
+          "grad_max": {k: float(g.abs().max()) for k, g in g_ref.items()}, **extra, "launches": launches, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"{phase}: loss or gradient on the card disagrees with the CPU float64 path: {loss_err:.3e}, {report}")
+    return launches
+
+
+def angular_steps(record):
+    """(steps run, ms a step after the first chunk, which holds the kernels' first launches) of an angular fit."""
+    steps, seconds = record["chunk_steps"], record["chunk_seconds"]
+    later = sum(steps[1:])
+    return sum(steps), (1e3 * sum(seconds[1:]) / later if later else 1e3 * seconds[0] / steps[0])
+
+
+def resume_from(tmp, ckpt, latest, wrappers):
+    """A fit of the ARTS 1V deck from the checkpoint ``latest`` in ``ckpt`` through ``runner.run``, asked for
+    ARTS_RESUME_EPOCHS epochs beyond it, no sigmas: (it started at ``latest`` and ran only the epochs left, report)."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+
+    epochs = latest + ARTS_RESUME_EPOCHS
+    deck = write_decks(tmp / f"arts1v_resume_{latest}", *arts_1v_decks(epochs, calc_sigmas=False, checkpoint_dir=str(ckpt),
+                                                                        checkpoint_freq=ARTS_1V_CKPT_FREQ))
+    record = {}
+    read_and_zero(wrappers)
+    runner.run(str(deck), "fit", record=record)
+    torch.cuda.synchronize()
+    launches = read_and_zero(wrappers)
+    angular = record["angular"]
+    ran = sum(angular["chunk_steps"])
+    report = {"latest": latest, "asked_epochs": epochs, "start_epoch": angular["start_epoch"], "steps_run": ran,
+              "epochs_counted": len(angular["losses"]), "launches": launches}
+    return angular["start_epoch"] == latest and ran == epochs - latest, report
+
+
+def cli_arts_1v_fit(wrappers, smi):
+    """The ARTS 1V fit through ``runner.run`` on the card, as ``e2e_arts.py`` runs it (the ATS image of shot 94475,
+    adam at lr 5e-3 for 200 epochs, ``calc_sigmas``), with a checkpoint directory (``checkpoint_freq`` 50).  Gates
+    (``e2e_arts.py``'s): ARTS_1V_MIN_EPOCHS epochs counted, the best epoch loss under ARTS_1V_DROP of the first,
+    ``binary/sigmas_fe.npz`` finite and not all zero, the image's files and the CSV present; a checkpoint (or, had
+    the fit stopped before its first, one from a fit of 8 epochs every 4), and a fit resumed from it that starts
+    at ``LATEST`` and runs only the epochs left; K1-K4, K9 and K9ᵀ once a step, the forward kernels once more for
+    the postprocess.  The EDF file: a DLM EDF gives the final parameters no ``fe``, so neither package writes one.
+    Prints the tracker's stage seconds, the epochs, ms a step and the float64 Hessian's seconds on the host."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+    from tsadar_tpu_torch.utils.checkpoint import latest_epoch
+
+    t_phase = time.perf_counter()
+    record = {}
+    with tracker_root() as tmp:
+        ckpt = tmp / "ckpt"
+        deck = write_decks(tmp / "arts1v", *arts_1v_decks(checkpoint_dir=str(ckpt), checkpoint_freq=ARTS_1V_CKPT_FREQ))
+        read_and_zero(wrappers)
+        t0 = time.perf_counter()
+        run_id = runner.run(str(deck), "fit", record=record)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        art = run_dir / "artifacts"
+        files = sorted(str(p.relative_to(art)) for p in art.rglob("*") if p.is_file())
+        sig = np.load(art / "binary" / "sigmas_fe.npz")["sigmas"]
+        table = csv_columns(art / "csv" / "learned_parameters.csv")
+        epoch_losses = [m["value"] for m in meta["metrics"]["epoch loss"]]
+        latest = latest_epoch(ckpt)
+        if latest is None:  # the fit stopped inside its first chunk: a short fit makes the checkpoints
+            ckpt = tmp / "ckpt_short"
+            short = write_decks(tmp / "arts1v_short", *arts_1v_decks(8, calc_sigmas=False, checkpoint_dir=str(ckpt), checkpoint_freq=4))
+            runner.run(str(short), "fit")
+            latest = latest_epoch(ckpt)
+            read_and_zero(wrappers)
+        resumed, resume_report = resume_from(tmp, ckpt, latest, wrappers) if latest is not None else (False, {})
+    angular = record["angular"]
+    steps, ms_per_step = angular_steps(angular)
+    want = {k: (steps + int(k in FORWARD_KERNELS)) * int(k in ARTS_1V_KERNELS) for k in launches}
+    gates = {"epochs_counted": len(epoch_losses) >= ARTS_1V_MIN_EPOCHS, "losses_finite": bool(np.isfinite(epoch_losses).all()),
+             "loss_drop": min(epoch_losses) < ARTS_1V_DROP * epoch_losses[0],
+             "sigmas": sig.shape == (1, 6) and bool(np.isfinite(sig).all()) and bool(np.any(sig != 0)),
+             "files": {"binary/angular_fit_and_data.npz", "binary/fit_and_data.nc", "csv/learned_parameters.csv",
+                       "binary/sigmas_fe.npz", "binary/sigma-fe.nc"} <= set(files),
+             "checkpoint": latest is not None, "resumed": resumed, "launches": launches == want,
+             "stage_metrics": all(k in meta["metrics"] for k in ARTS_1V_STAGES)}
+    ok = all(gates.values())
+    emit({"phase": "cli_arts_1v_fit", "gates": gates, "epochs_counted": len(epoch_losses), "steps_run": steps,
+          "first_epoch_loss": epoch_losses[0], "best_epoch_loss": min(epoch_losses), "last_epoch_loss": epoch_losses[-1],
+          "drop_tol": ARTS_1V_DROP, "ms_per_step": ms_per_step, "first_chunk_seconds": angular["chunk_seconds"][0],
+          "chunks_seconds": sum(angular["chunk_seconds"]),
+          "stage_seconds_tracker": {k: metric(meta, k) for k in ARTS_1V_STAGES if k in meta["metrics"]},
+          "hessian_cpu_f64_seconds": record.get("recalc_hessian_seconds"), "seconds": seconds,
+          "fitted": {k: v.tolist() for k, v in table.items()}, "sigmas": sig.tolist(), "files": files,
+          "checkpoint_latest": latest, "resume": resume_report, "launches": launches, "launches_want": want,
+          "launches_per_step": {k: launches[k] / steps for k in ARTS_1V_KERNELS}, "phase_seconds": time.perf_counter() - t_phase,
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"cli_arts_1v_fit: gates {gates}, launches {launches} (want {want})")
+    return launches
+
+
+def arts_1v_real_grad_check(wrappers):
+    """The ARTS 1V deck's first batch (the window of shot 94475's image at the deck's start values): the card's
+    loss and gradient against the port's CPU float64 path, with the float32 rule (``card_against_cpu``)."""
+    from tsadar_tpu_torch.inverse import fitter
+    from tsadar_tpu_torch.inverse.loops import _angular_batch
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    cfg = fitter._lineout_selection(merge_configs(*arts_1v_decks()))
+    all_data, sa, _ = fitter.load_data_for_fitting(cfg)
+    batch = _angular_batch(all_data, angular_window(cfg))
+    card_against_cpu("arts_1v_real_grad_check", cfg, sa, batch, wrappers)
+
+
+def arts_2v_real_fit(wrappers, smi):
+    """``fitter.fit`` of the ARTS 2V deck's pointwise EDF (``arts_2v_real_deck``: 128 x 128 free values) on shot
+    94475's image on the card: rmsprop at ARTS_2V_REAL_LR for ARTS_2V_REAL_EPOCHS epochs, ``calc_sigmas``.  Gates: every
+    counted loss finite, the last under the first, the Hessian skipped with the JAX package's message (16 384 active
+    parameters against its budget of 2048); the layout step, K7 and K8 once a step, the layout step and K7 once more
+    for the postprocess.  Returns (launches, ms a step)."""
+    import torch
+
+    from tsadar_tpu_torch.inverse import fitter
+
+    t_phase = time.perf_counter()
+    record = {}
+    read_and_zero(wrappers)
+    t0 = time.perf_counter()
+    _, loss = fitter.fit(arts_2v_real_deck(), record=record)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_and_zero(wrappers)
+    angular = record["angular"]
+    losses = angular["losses"]
+    steps, ms_per_step = angular_steps(angular)
+    want = {k: (steps + int(k in ARTS_FWD_KERNELS)) * int(k in ARTS_KERNELS) for k in launches}
+    gates = {"losses_finite": bool(np.isfinite(losses).all()), "loss_falls": losses[-1] < losses[0],
+             "hessian_skipped": record.get("sigma_error") == ARTS_HESSIAN_SKIPPED.format(ARTS_2V_NVX**2),
+             "launches": launches == want}
+    ok = all(gates.values())
+    emit({"phase": "arts_2v_real_fit", "gates": gates, "image": list(np.shape(record["fits"]["ele"])),
+          "epochs_counted": len(losses), "steps_run": steps, "first_loss": losses[0], "last_loss": losses[-1],
+          "best_loss": min(losses), "ms_per_step": ms_per_step, "sigma_error": record.get("sigma_error"),
+          "stage_seconds_record": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")},
+          "seconds": seconds, "launches": launches, "launches_want": want,
+          "launches_per_step": {k: launches[k] / steps for k in ARTS_KERNELS}, "losses_every_10th": losses[::10],
+          "phase_seconds": time.perf_counter() - t_phase, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_2v_real_fit: gates {gates}, launches {launches} (want {want})")
+    return launches, ms_per_step
+
+
+def multiplex_profiles(cfg, sa, batch, loss_fn, few=4):
+    """Profiles of ``few`` adam steps of the multiplexed loop (``loss_fn`` on both windows) and of the same loop on
+    the first window alone, from the deck's start values: (multiplexed, single), each as ``profile_run`` gives it."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.inverse.loops import _angular_loop_
+
+    single_cfg = copy.deepcopy(cfg)
+    single_cfg["data"]["shotnum"] = MULTIPLEX_SHOTS[0]
+    runs = (("arts_multiplex_profile", cfg, loss_fn, batch),
+            ("arts_single_window_profile", single_cfg, LossFunction(single_cfg, sa, batch["b1"]), batch["b1"]))
+    out = []
+    for phase, step_cfg, fn, b in runs:
+        step_cfg = copy.deepcopy(step_cfg)
+        step_cfg["optimizer"].update(method="adam", learning_rate=MULTIPLEX_LR, num_epochs=few, save_state=False)
+        dev, dtype = fn.ts_diag.device, fn.ts_diag.dtype
+        b = fn.device_batch(b)
+        _angular_loop_(step_cfg, fn, ThomsonParams.create(step_cfg["parameters"], 1, activate=True, device=dev, dtype=dtype,
+                                                          batch=False), b)  # warm: the kernels and tables loaded
+        start = ThomsonParams.create(step_cfg["parameters"], 1, activate=True, device=dev, dtype=dtype, batch=False)
+        t0 = time.perf_counter()
+        _angular_loop_(step_cfg, fn, copy.deepcopy(start), b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / few
+        out.append(profile_run(lambda: _angular_loop_(step_cfg, fn, start, b), few, ms, phase, "step"))
+        emit(out[-1])
+    return out
+
+
+def arts_multiplex(wrappers, smi, single_ms_per_step):
+    """The multiplexed two-shot fit on ``arts_2v_real_fit``'s deck: shots 94475 and 94477, ``shot_rot`` 25 degrees,
+    each shot prepared on its own (``fitter.prepare_multiplexed``: the JAX package's list arm cannot load them), the
+    ``{"b1", "b2"}`` windows; the card's loss and ``fval`` gradient against the CPU float64 path
+    (``card_against_cpu``, NUDFT on both), then MULTIPLEX_STEPS adam steps of ``angular_optax`` on the card: every
+    loss finite, the last under the first, the layout step, K7 and K8 twice a step; then a profile of a few
+    multiplexed steps beside a few steps on the first window alone.  Returns the fit's launches."""
+    import torch
+
+    from tsadar_tpu_torch import angular_optax
+    from tsadar_tpu_torch.inverse import fitter
+    from tsadar_tpu_torch.inverse.loops import _angular_batch
+
+    t_phase = time.perf_counter()
+    cfg = arts_2v_real_deck()
+    cfg["data"].update(shotnum=list(MULTIPLEX_SHOTS), shot_rot=MULTIPLEX_ROT)
+    cfg = fitter._lineout_selection(cfg)
+    all_data, sa, _ = fitter.prepare_multiplexed(cfg)
+    fit_cfg = copy.deepcopy(cfg)
+    window = angular_window(cfg)
+    batch = {"b1": _angular_batch(all_data, window), "b2": _angular_batch(all_data, window, rot=True)}
+    check_launches = card_against_cpu("arts_multiplex_grad_check", cfg, sa, batch, wrappers, f32_rule=False)
+
+    fit_cfg["optimizer"].update(method="adam", learning_rate=MULTIPLEX_LR, num_epochs=MULTIPLEX_STEPS, save_state=False)
+    record = {}
+    read_and_zero(wrappers)
+    _, _, loss_fn = angular_optax(fit_cfg, all_data, sa, record=record)
+    torch.cuda.synchronize()
+    launches = read_and_zero(wrappers)
+    profiles = multiplex_profiles(cfg, sa, batch, loss_fn)
+    losses = record["losses"]
+    steps, ms_per_step = angular_steps(record)
+    want = {k: 2 * steps * int(k in ARTS_KERNELS) for k in launches}
+    gates = {"losses_finite": bool(np.isfinite(losses).all()), "loss_falls": losses[-1] < losses[0],
+             "launches": launches == want, "check_launches": check_launches == {k: 2 * int(k in ARTS_KERNELS) for k in launches}}
+    ok = all(gates.values())
+    emit({"phase": "arts_multiplex", "gates": gates, "shots": MULTIPLEX_SHOTS, "shot_rot": MULTIPLEX_ROT,
+          "images": [list(all_data["e_data"].shape), list(all_data["e_data_rot"].shape)], "window": [window.start, window.stop],
+          "lr": MULTIPLEX_LR, "epochs_counted": len(losses), "steps_run": steps, "first_loss": losses[0], "last_loss": losses[-1],
+          "ms_per_step": ms_per_step, "single_image_ms_per_step": single_ms_per_step,
+          "ms_per_step_ratio_to_single": ms_per_step / single_ms_per_step,
+          "profiled_ratio_to_single": {k: profiles[0][k] / profiles[1][k] if profiles[1][k] else None
+                                       for k in ("step_ms", "device_ms_per_step", "kernel_launches_per_step")},
+          "launches": launches, "launches_want": want,
+          "launches_per_step": {k: launches[k] / steps for k in ARTS_KERNELS}, "phase_seconds": time.perf_counter() - t_phase,
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_multiplex: gates {gates}, launches {launches} (want {want})")
+    return launches
+
+
 # (source, the TPU kernel it replaces, which of the repo's ten TPU kernels); K9's transposed mode and
 # K10's table cotangent have no TPU kernel of their own: they stand beside the kernel they belong to
 KERNELS = {
@@ -2635,6 +2980,14 @@ def main():
     path_launches["cli_forward_arts"] = cli_forward_arts(wrappers, smi)
     path_launches["cli_main_deck_fit"] = cli_main_deck_fit(wrappers, smi)
     path_launches["cli_whole_shot_fit"] = cli_whole_shot_fit(wrappers, smi)
+
+    # 4e. this slice's paths: the ARTS 1V fit through runner.run from shot 94475's real data (checkpoints, a
+    # resume, the sigmas), its first batch's loss and gradient, the 2V deck's pointwise EDF through fitter.fit on
+    # the same image, and the multiplexed two-shot fit (shots 94475 and 94477, the EDF turned by 25 degrees)
+    path_launches["cli_arts_1v_fit"] = cli_arts_1v_fit(wrappers, smi)
+    arts_1v_real_grad_check(wrappers)
+    path_launches["arts_2v_real_fit"], arts_2v_ms = arts_2v_real_fit(wrappers, smi)
+    path_launches["arts_multiplex"] = arts_multiplex(wrappers, smi, arts_2v_ms)
 
     with torch.no_grad():
         # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels

@@ -9,7 +9,8 @@ EDF trainable (``fval`` [32, 32]) and data made from a seed:
 * ``angular_optax``: five adam steps and three rmsprop steps against the same
   steps taken with optax over the JAX loss (every loss to 1e-9 relative, the
   final ``fval`` to 1e-9), the window arithmetic on the deck, the early stop,
-  and what it refuses.
+  the multiplexed loop, the 2V moment penalties, and what it refuses (the
+  other optimizers are in ``tests/test_torch_optimizers.py``).
 """
 
 import copy
@@ -29,7 +30,7 @@ from tsadar_tpu.core.params import get_filter_spec as jax_filter_spec
 from tsadar_tpu.inverse.loss import LossFunction as JaxLoss
 import tsadar_tpu_torch as port
 from tsadar_tpu_torch.convert import leaves_by_path, thomson_params_from_partitions
-from tsadar_tpu_torch.inverse import loops
+from tsadar_tpu_torch.inverse import loops, optimizers
 from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
 
 HERE = os.path.dirname(__file__)
@@ -128,7 +129,7 @@ def test_rmsprop_is_optax_rmsprop_not_torchs_default():
     xj, state = jnp.asarray(x0), None
     state = opt.init(xj)
     p = torch.nn.Parameter(torch.tensor(x0))
-    mine = loops.RMSprop([p], lr=1e-2)
+    mine = optimizers.RMSprop([p], lr=1e-2)
     for g in grads:
         updates, state = opt.update(jnp.asarray(g), state)
         xj = optax.apply_updates(xj, updates)
@@ -191,17 +192,30 @@ def test_angular_loop_fits_the_arts_1v_deck():
 
 
 def test_what_the_angular_fit_leaves_out_raises():
+    """What raised here until it was ported runs: the multiplexed two-shot loop (``{"b1", "b2"}`` batches from the
+    ``*_rot`` channels; ``tests/test_torch_multiplex.py`` holds it to the JAX package) and the 2V moment
+    penalties (here against the JAX package's on a skewed EDF).  A method outside ``optimizers.METHODS``
+    still raises."""
     cfg, sas = _config()
     multiplexed = copy.deepcopy(cfg)
-    multiplexed["data"]["shotnum"] = [101675, 101676]
-    with pytest.raises(NotImplementedError, match="multiplexed"):
-        port.angular_optax(multiplexed, _all_data(0), sas, device="cpu")
+    multiplexed["data"].update(shotnum=[101675, 101676], shot_rot=25.0)
+    multiplexed["optimizer"]["num_epochs"] = 1
+    all_data, second = _all_data(0), _all_data(1)
+    all_data.update(e_data_rot=second["e_data"], e_amps_rot=second["e_amps"], noiseE_rot=second["noiseE"])
+    record = {}
+    _, last, loss_fn = port.angular_optax(multiplexed, all_data, sas, device="cpu", record=record)
+    assert loss_fn.multiplex_ang and len(record["losses"]) == 1 and np.isfinite(last)
     lbfgs = copy.deepcopy(cfg)
     lbfgs["optimizer"]["method"] = "lbfgs"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.angular_optax(lbfgs, _all_data(0), sas, device="cpu")
     moments = copy.deepcopy(cfg)
     moments["optimizer"]["moment_loss"] = True
-    loss_fn = port.LossFunction(moments, sas, {"e_data": np.ones((2, 2)), "i_data": np.ones(2)}, device="cpu")
-    with pytest.raises(NotImplementedError, match="2V moment"):
-        loss_fn.moment_penalties({})
+    dummy = {"e_data": np.ones((2, 2)), "i_data": np.ones(2)}
+    loss_fn = port.LossFunction(moments, sas, dummy, device="cpu")
+    v = np.linspace(-6.0, 6.0, 32)
+    fe = np.exp(-((v[None, :] - 0.4) ** 2) / 2.0 - ((v[:, None] + 0.2) ** 2) / 1.6) * (1.0 + 0.1 * v[None, :])
+    want = JaxLoss(moments, sas, dummy).moment_penalties({"electron": {"fe": jnp.asarray(fe), "v": jnp.asarray(v)}})
+    got = loss_fn.moment_penalties({"electron": {"fe": torch.tensor(fe), "v": torch.tensor(v)}})
+    np.testing.assert_allclose([float(g) for g in got], [float(w) for w in want], rtol=1e-12)
+    assert min(float(w) for w in want) > 0.0

@@ -4,12 +4,15 @@
 * without ``--device cpu`` and with no GPU the command fails with
   ``resolve_device``'s message, before a run is registered;
 * the fit of ``test_runner_paths._small_decks()`` (2 lineouts, adam, 10
-  epochs) through ``python -m tsadar_tpu_torch --mode fit --device cpu``: its
-  ``learned_parameters.csv`` equals ``fitter.fit(cfg, device="cpu")``'s final
-  parameters to 1e-12, and the run holds the JAX package's stage metrics;
+  epochs) through ``python -m tsadar_tpu_torch --mode fit --device cpu``: the
+  run holds the JAX package's stage metrics and files; and through
+  ``cli.main`` in this process, where its ``learned_parameters.csv`` equals
+  ``fitter.fit(cfg, device="cpu")``'s final parameters to 1e-12 (the two share
+  one fit of the streak background: ``same_scipy_fits``);
 * ports of ``run_job`` and ``run_for_app`` from ``test_runner_paths.py``;
 * the forward mode of ``configs/1d``, the profile option, and what raises
-  before any work (``TSADAR_MULTIHOST``, an angular fit);
+  before any work (``TSADAR_MULTIHOST``, an optimizer the angular fit does
+  not take, an unknown mode);
 * slow: a whole ``runner.run`` of the JAX package against the port's command
   line on the same decks.
 """
@@ -31,7 +34,9 @@ from tsadar_tpu_torch import cli, runner
 from tsadar_tpu_torch.inverse import fitter
 from tsadar_tpu_torch.utils import mlflow_shim as mlflow
 from tsadar_tpu_torch.utils.config import merge_configs
+from tsadar_tpu_torch.utils.schema import ConfigError
 
+from .test_torch_data_pipeline import same_scipy_fits
 from .test_utils.test_runner_paths import DATA_DIR, _small_decks
 from .torch_threads import one_torch_thread  # noqa: F401
 
@@ -93,18 +98,16 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path, capsys, monkeypatch):
         runner.run(str(cfg), "fit")
 
 
-def test_cli_fit_writes_the_fitters_parameters(tmp_path):
-    """The command line's fit and ``fitter.fit`` on the same deck: the CSV holds the fitter's parameters."""
+def test_cli_fit_child_process_writes_the_run(tmp_path):
+    """``python -m tsadar_tpu_torch --mode fit`` in a process of its own: exit 0, the run's record (status, stage
+    metrics, parameters), its files and its stored decks; the CSV's columns and pixels."""
     defaults, inputs = _small_decks()
     _write_decks(tmp_path / "cfg", defaults, inputs)
     out = _module(["--cfg", "cfg", "--mode", "fit", "--device", "cpu"], tmp_path)
     assert out.returncode == 0, out.stderr
     (run_dir,) = [p.parent for p in (tmp_path / "runs").rglob("run.json")]
     table = pd.read_csv(run_dir / "artifacts" / "csv" / "learned_parameters.csv", index_col=0)
-    want, _ = fitter.fit(merge_configs(defaults, inputs), device="cpu")
-    assert list(table.columns) == list(want) and len(table) == 2
-    for k, v in want.items():
-        np.testing.assert_allclose(table[k].to_numpy(), v, rtol=1e-12, atol=0, err_msg=k)
+    assert list(table.columns)[:2] == ["lineout pixel", "Time (ps)"] and len(table) == 2
     np.testing.assert_array_equal(table["lineout pixel"], [500, 502])
     meta = json.loads((run_dir / "run.json").read_text())
     assert meta["tags"]["status"] == "completed" and STAGE_METRICS <= set(meta["metrics"])
@@ -113,6 +116,22 @@ def test_cli_fit_writes_the_fitters_parameters(tmp_path):
     assert files == {"defaults.yaml", "inputs.yaml", "csv/learned_parameters.csv", "csv/sigmas.csv", "binary/sigmas.npz",
                      "sigmas.nc", "binary/ele_fit_and_data.npz", "binary/ele_fit_and_data.nc"}
     assert yaml.safe_load((run_dir / "artifacts" / "defaults.yaml").read_text()) == defaults
+
+
+def test_cli_fit_writes_the_fitters_parameters(tmp_path, monkeypatch):
+    """The command line's fit (``cli.main`` in this process) and ``fitter.fit`` on the same deck, sharing one fit
+    of the streak background (``same_scipy_fits``: scipy's ``curve_fit`` ends it in either of two mirror
+    solutions from one process to the next): the CSV holds the fitter's parameters to 1e-12."""
+    defaults, inputs = _small_decks()
+    cfg = _write_decks(tmp_path / "cfg", defaults, inputs)
+    monkeypatch.setenv("TSADAR_RUNS_DIR", str(tmp_path / "runs"))
+    with same_scipy_fits():
+        run_id = cli.main(["--cfg", str(cfg), "--mode", "fit", "--device", "cpu"])
+        want, _ = fitter.fit(merge_configs(defaults, inputs), device="cpu")
+    table = pd.read_csv(_run_dir(tmp_path / "runs", run_id) / "artifacts" / "csv" / "learned_parameters.csv", index_col=0)
+    assert list(table.columns) == list(want) and len(table) == 2
+    for k, v in want.items():
+        np.testing.assert_allclose(table[k].to_numpy(), v, rtol=1e-12, atol=0, err_msg=k)
 
 
 def test_run_job_resumes_from_stored_decks(tmp_path, monkeypatch):
@@ -195,9 +214,11 @@ def test_what_the_port_cannot_run_raises_before_any_work(tmp_path, monkeypatch, 
         monkeypatch.setenv("TSADAR_MULTIHOST", "1")
         with pytest.raises(NotImplementedError, match="§1 item 8"):
             runner.run("configs/1d", "forward", device="cpu")
-    elif case == "angular_fit":
-        with pytest.raises(NotImplementedError, match="§1 item 7"):
-            runner.run("configs/arts-2d", "fit", device="cpu")
+    elif case == "angular_fit":  # an angular fit runs (tests/test_torch_arts_fit.py); an optimizer the port lacks does not
+        defaults, inputs = _decks("arts-2d")
+        inputs["optimizer"] = {"method": "lamb"}
+        with pytest.raises(ConfigError, match="the port takes these optax optimizers"):
+            runner.run(str(_write_decks(tmp_path / "cfg", defaults, inputs)), "fit", device="cpu")
     else:
         with pytest.raises(NotImplementedError, match="not implemented"):
             runner.run("configs/1d", "plot", device="cpu")

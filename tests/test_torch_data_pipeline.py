@@ -220,9 +220,15 @@ def test_the_visualizer_is_logged_and_skipped(monkeypatch):
 
 
 def test_multiplexed_shots_raise():
+    """A list of shots raises before any data is read, with the JAX package's message for a deck that is not
+    ``angular_full`` and, for one that is, where the JAX package's ``prepare_data`` fails, naming that fault
+    (``tests/test_torch_multiplex.py`` holds both packages to it)."""
     cfg = _deck(500, 510, 5, 2)
     cfg["data"]["shotnum"] = [101675, 101676]
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="^Multiplexed data fitting is only available for angular data$"):
+        load_data_for_fitting(cfg)
+    cfg["other"]["extraoptions"]["spectype"] = "angular_full"
+    with pytest.raises(NotImplementedError, match="loads data.shotnum, not shotNum"):
         load_data_for_fitting(cfg)
 
 

@@ -5,16 +5,18 @@ written (shot 101675, pixels 500 and 505, batch size 2, ``method: l-bfgs-b``)
 with the raw-data visualizer off (matplotlib; the port has none) and, in
 tier-1, ``num_epochs`` cut to 3 L-BFGS-B iterations: both packages' final
 parameters agree to 1e-6 relative, the port's come with the lineout pixels and
-the time axis, and its record with the stage seconds and scipy's ``nit``.
+the time axis, and its record with the stage seconds and scipy's ``nit``.  The
+two fits share one fit of the streak background (``same_scipy_fits``: scipy's
+``curve_fit`` ends it in either of two mirror solutions).
 The JAX package's plots are stubbed out (only ``get_final_params`` is kept):
 they cost tier-1 seconds and say nothing of the fit.
 
 ``test_fit_main_deck_as_written`` (slow-marked, as
 ``tests/test_inverse/test_1d_data.py`` is) runs the deck's full 1000
 iterations in float64 and holds the result to that test's upstream-validated
-values and tolerances and its self-validated pins of both lineouts.  What
-``fit`` does not take yet (the angular spectypes) raises before any data is
-read; ``plotting.detailed_breakdown`` runs.
+values and tolerances and its self-validated pins of both lineouts.  A
+multiplexed deck raises before any data is read; an angular deck and
+``plotting.detailed_breakdown`` run.
 """
 
 from pathlib import Path
@@ -29,6 +31,7 @@ from tsadar_tpu.utils.config import merge_configs
 from tsadar_tpu.utils.plotting import plotters
 from tsadar_tpu_torch.inverse import fitter
 
+from .test_torch_data_pipeline import same_scipy_fits
 from .torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CONFIGS = Path(__file__).resolve().parent / "configs"
@@ -51,11 +54,11 @@ def test_fit_matches_jax_fitter(tmp_path, monkeypatch):
     monkeypatch.setenv("TSADAR_RUNS_DIR", str(tmp_path))
     monkeypatch.chdir(tmp_path)
     mlflow.set_experiment("tsadar-tpu-tests")
-    with mlflow.start_run(run_name="test_torch_fitter"):
-        want, want_loss = jax_fitter.fit(config=_deck(num_epochs=3))
-
     record = {}
-    got, got_loss = fitter.fit(_deck(num_epochs=3), device="cpu", record=record)
+    with same_scipy_fits():  # one fit of the streak background for both packages (its two mirror solutions)
+        with mlflow.start_run(run_name="test_torch_fitter"):
+            want, want_loss = jax_fitter.fit(config=_deck(num_epochs=3))
+        got, got_loss = fitter.fit(_deck(num_epochs=3), device="cpu", record=record)
     assert list(got)[:2] == ["lineout pixel", "Time (ps)"]
     np.testing.assert_array_equal(got["lineout pixel"], [500, 505])
     assert np.all(np.isfinite(got["Time (ps)"]))
@@ -82,9 +85,10 @@ def test_fit_main_deck_as_written():
 
 @pytest.mark.parametrize("option", ["detailed_breakdown", "angular"])
 def test_fit_refuses_what_is_not_ported_up_front(option):
-    """The angular postprocess raises before any data is read; ``plotting.detailed_breakdown``, which raised here
-    until ``spectrum_breakdown`` was ported, now runs: the record's fitted spectra carry the breakdown of the
-    deck's one batch (``tests/test_torch_imaging_112059.py`` holds it to JAX's)."""
+    """``plotting.detailed_breakdown``, which raised here until ``spectrum_breakdown`` was ported, runs: the
+    record's fitted spectra carry the breakdown of the deck's one batch (``tests/test_torch_imaging_112059.py``
+    holds it to JAX's).  The angular fit, which raised here until it was ported, goes on to read its data
+    (``tests/test_torch_arts_fit.py`` runs it); a multiplexed deck still raises before any data is read."""
     cfg = _deck()
     if option == "detailed_breakdown":
         cfg["plotting"]["detailed_breakdown"] = True
@@ -98,6 +102,9 @@ def test_fit_refuses_what_is_not_ported_up_front(option):
         assert np.abs(ele["IRF"]).max() > 0.0
         return
     cfg["other"]["extraoptions"]["spectype"] = "angular_full"
-    cfg["data"]["shotnum"] = -1  # no such shot: a fit that read data would fail otherwise
+    cfg["data"]["shotnum"] = [-1, -2]  # a multiplexed deck stops before any data is read, where the JAX package's fails
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fitter.fit(cfg, device="cpu")
+    cfg["data"]["shotnum"] = -1  # one image: the angular fit is ported and goes on to read its shot
+    with pytest.raises(LookupError, match="No data found for shotnumber -1"):
         fitter.fit(cfg, device="cpu")

@@ -175,9 +175,16 @@ def test_moment_penalties_zero_for_normalized_maxwellian():
         assert float(density) < 1e-6 and float(temperature) < 1e-5 and float(momentum) < 1e-12
     density2, temperature2, _ = loss_fn.moment_penalties({"electron": {"fe": 2.0 * fe[None, :], "v": 1.3 * v}})
     assert float(density2) > 1e-1 and float(temperature2) > 1e-1
+    # the 2V arm, which raised here until it was ported: a normalized isotropic 2D Maxwellian has unit density,
+    # second moment 2 (unit variance a dimension) and no first moments (tests/test_torch_arts_loss.py holds a
+    # skewed EDF to the JAX package's)
     loss_fn.cfg["parameters"]["electron"]["fe"]["dim"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn.moment_penalties({"electron": {"fe": fe, "v": v}})
+    v2 = torch.linspace(-8.0, 8.0, 801, dtype=torch.float64)
+    fe2 = torch.exp(-(v2[:, None] ** 2 + v2[None, :] ** 2) / 2) / (2 * np.pi)
+    density, temperature, momentum = loss_fn.moment_penalties({"electron": {"fe": fe2, "v": v2}})
+    assert float(density) < 1e-12 and float(temperature) < 1e-12 and float(momentum) < 1e-24
+    density2, temperature2, momentum2 = loss_fn.moment_penalties({"electron": {"fe": torch.roll(fe2, 40, dims=1), "v": v2}})
+    assert float(density2) < 1e-12 and float(temperature2) > 1e-2 and float(momentum2) > 1e-2
 
 
 def test_bound_penalty_fires_out_of_bounds():
@@ -227,16 +234,17 @@ def test_y_norm_and_device_batch():
 
 
 def test_unported_interfaces_raise():
-    """What the loss still lacks raises, naming its ROADMAP item: the multiplexed two-shot angular loss.  The
-    scipy interface and the Hessian, which raised here until they were ported, are held to the JAX package's
-    in ``tests/test_torch_flat_loss.py`` and ``tests/test_torch_postprocess.py``."""
+    """Every interface of the loss is ported: the scipy interface and the Hessian, which raised here until they
+    were ported, are held to the JAX package's in ``tests/test_torch_flat_loss.py`` and
+    ``tests/test_torch_postprocess.py``; the multiplexed two-shot loss, which raised here until it was ported, builds
+    (``multiplex_ang``) and is held to the JAX package's in ``tests/test_torch_multiplex.py``."""
     loss_fn, cfg = _plain_loss()
     for call in (loss_fn.vg_loss, loss_fn.loss, loss_fn.h_loss_wrt_params, loss_fn.array_loss):
         assert callable(call)
+    assert not loss_fn.multiplex_ang
     cfg2 = copy.deepcopy(cfg)
     cfg2["data"]["shotnum"] = [1, 2]  # the multiplexed two-shot angular fit
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LossFunction(cfg2, port.get_scattering_angles(cfg2), _make_batch(BATCH), device="cpu")
+    assert LossFunction(cfg2, port.get_scattering_angles(cfg2), _make_batch(BATCH), device="cpu").multiplex_ang
 
 
 def test_float32_plain_gradients_no_worse_than_jax_float32():

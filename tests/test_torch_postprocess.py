@@ -25,7 +25,9 @@ with its active parameters spread per lineout by a seeded draw, float64:
 * ``plotting.detailed_breakdown`` over two batches of two: each batch's
   component stacks and raw axes (the ion stack to 1e-8 of its peak: see
   ``tests/test_torch_detailed_spectrum.py``) and the instrument-only spectra
-  as the JAX package files them; the angular spectype raises up front.
+  as the JAX package files them; the angular arm on the small ARTS 2V deck
+  (the window's fit, losses and squared deviations), and its Hessian skipped
+  past the JAX package's budget of 2048 active parameters.
 * ``interp.plain_forms()``: the lookups, the padded lookup, the chi tables'
   lookup and the PV tables give the same values with no ``autograd.Function``
   in their graph, and a second derivative (the spectrum tail's route is what
@@ -132,8 +134,9 @@ def test_recalculate_with_chosen_weights_matches_jax():
 
 
 def test_unported_options_raise_up_front():
-    """The angular spectype raises up front; ``plotting.detailed_breakdown``, which raised here until it was
-    ported, runs: each batch's breakdown (component stacks, instrument-only spectra, raw axes) as JAX files it."""
+    """What raised here until it was ported runs: ``plotting.detailed_breakdown`` (each batch's component stacks,
+    instrument-only spectra and raw axes, as JAX files them) and the angular arm (the window's fit, losses and
+    squared deviations against JAX's; the Hessian skipped past its budget of 2048 active parameters)."""
     n, bs = 4, 2
     cfg = ge._small_config(bs)
     cfg["plotting"] = {"detailed_breakdown": True}
@@ -153,10 +156,38 @@ def test_unported_options_raise_up_front():
                 np.testing.assert_allclose(g, w, rtol=0, atol=1e-8 * np.abs(w).max(), err_msg=f"{feature} {key}")
         np.testing.assert_allclose(got[feature]["IRF"], want[feature]["IRF"], rtol=0,
                                    atol=1e-10 * np.abs(want[feature]["IRF"]).max(), err_msg=feature)
-    cfg["plotting"]["detailed_breakdown"] = False
-    cfg["other"]["extraoptions"]["spectype"] = "angular_full"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppp.recalculate_with_chosen_weights(cfg, None, np.arange(2), None, None, False, [])
+
+    # the angular arm, which raised here until it was ported: the small ARTS 2V deck's window, against JAX's
+    from .test_torch_arts_loss import UNIT, _all_data as arts_data, _config as arts_config
+
+    cfg, sas = arts_config()
+    lineouts = cfg["data"]["lineouts"]
+    lineouts.update(start=int(lineouts["start"] / UNIT), end=int(lineouts["end"] / UNIT))
+    cfg["optimizer"]["batch_size"] = 1
+    all_data = arts_data(0)
+    jw = JaxParams.create(cfg["parameters"], num_params=1, batch=False, activate=True)
+    diff, static = partition(jw, jax_filter_spec(cfg["parameters"], jw))
+    pw = thomson_params_from_partitions(cfg["parameters"], diff, static, activate=True, device="cpu")
+    window = {"e_data": all_data["e_data"][lineouts["start"] : lineouts["end"]], "i_data": all_data["i_data"]}
+    n = len(all_data["e_data"])
+    want = jpp.recalculate_with_chosen_weights(cfg, sas, np.arange(n), all_data, JaxLoss(cfg, sas, window), False, [jw])
+    record = {}
+    got = ppp.recalculate_with_chosen_weights(cfg, sas, np.arange(n), all_data, port.LossFunction(cfg, sas, window, device="cpu"),
+                                              False, [pw], record)
+    losses, sqdevs, num_params, fits, sigmas, all_params = got
+    assert fits["ele"].shape == (107, 128) and num_params == want[2]
+    np.testing.assert_allclose(fits["ele"], want[3]["ele"], rtol=0, atol=1e-10 * np.abs(want[3]["ele"]).max())
+    np.testing.assert_allclose(losses, want[0], rtol=1e-9)
+    np.testing.assert_allclose(sqdevs["ele"], want[1]["ele"], rtol=0, atol=1e-9 * np.abs(want[1]["ele"]).max())
+    assert all_params["electron"]["f"][0].shape == (32, 32)  # one unbatched set, not joined across batches
+    # a 64 x 64 EDF's 4096 weights exceed the Hessian's budget of 2048: the sigmas are skipped with the JAX
+    # package's message, as its postprocess does, before any Hessian work
+    cfg["parameters"]["electron"]["fe"]["nvx"] = 64
+    pw64 = port.ThomsonParams.create(cfg["parameters"], 1, activate=True, device="cpu", batch=False)
+    got = ppp.recalculate_with_chosen_weights(cfg, sas, np.arange(n), all_data, port.LossFunction(cfg, sas, window, device="cpu"),
+                                              True, [pw64], record)
+    assert record["sigma_error"] == "4096 active parameters exceed the hessian budget (2048)"
+    assert not np.any(got[4])
 
 
 def _graph_names(t):

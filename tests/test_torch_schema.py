@@ -5,8 +5,10 @@ Parametrized over every deck pair of ``configs/`` and ``tests/configs/`` in
 every mode, and over the cases of ``tests/test_utils/test_schema.py`` (each a
 change to the main deck).  One departure: the JAX package accepts any
 optimizer name that ``optax`` has; the port takes the names its loops take
-(adam, lbfgs, l-bfgs-b, and rmsprop for the angular loop) and refuses the
-others with a message of the same form.
+(adam, lbfgs, l-bfgs-b, and the optax names of ``inverse.optimizers.METHODS``
+for the angular loop) and refuses the others with the JAX package's message
+for a name that is not optax's, followed by the list of the optax names it
+takes.
 """
 
 import copy
@@ -18,7 +20,8 @@ import yaml
 from tsadar_tpu.utils.schema import ConfigError as JaxConfigError
 from tsadar_tpu.utils.schema import validate_config as jax_validate
 from tsadar_tpu_torch.utils.config import merge_configs
-from tsadar_tpu_torch.utils.schema import ConfigError, validate_config
+from tsadar_tpu_torch.inverse.optimizers import METHODS
+from tsadar_tpu_torch.utils.schema import PORTED_OPTAX, ConfigError, validate_config
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 TESTS = os.path.join(ROOT, "tests", "configs")
@@ -49,9 +52,11 @@ def _outcome(validate, error, cfg, mode):
 
 
 def _same(cfg, mode):
-    """Both validators on their own copy of ``cfg``: the port's outcome (None, or its message)."""
+    """Both validators on their own copy of ``cfg``: the port's outcome (None, or its message).  Where the
+    optimizer's name is refused, the port's message goes on to list the optax names it takes."""
     got = _outcome(validate_config, ConfigError, copy.deepcopy(cfg), mode)
-    assert got == _outcome(jax_validate, JaxConfigError, copy.deepcopy(cfg), mode)
+    want = _outcome(jax_validate, JaxConfigError, copy.deepcopy(cfg), mode)
+    assert got == (want + PORTED_OPTAX if want is not None and want.startswith("optimizer.method") else want)
     return got
 
 
@@ -122,19 +127,21 @@ def test_a_config_that_is_not_a_mapping(bad):
     assert _same(bad, "fit").startswith("config must be a mapping")
 
 
-@pytest.mark.parametrize("method", ["adamw", "sgd", "lion"])
+@pytest.mark.parametrize("method", ["lamb", "novograd", "adafactor"])
 def test_optax_names_the_port_does_not_take(method):
-    """A deliberate departure (ROADMAP.md §3): the JAX package takes any optax optimizer by name."""
+    """A deliberate departure (ROADMAP.md §3): the JAX package takes any optax optimizer by name; the port refuses
+    one it has not ported and lists those it has."""
     cfg = _load(*DECKS["tests/time_test"])
     cfg["optimizer"]["method"] = method
     jax_validate(copy.deepcopy(cfg), mode="fit")
     with pytest.raises(ConfigError) as e:
         validate_config(cfg, mode="fit")
     assert str(e.value) == (f"optimizer.method: {method!r} is not one of ('adam', 'lbfgs', 'l-bfgs-b') or an optax "
-                            f"optimizer" + (" (did you mean 'adam'?)" if method == "adamw" else ""))
+                            f"optimizer; the port takes these optax optimizers: {METHODS}")
 
 
-@pytest.mark.parametrize("method", ["adam", "lbfgs", "l-bfgs-b", "rmsprop"])
+@pytest.mark.parametrize("method", ["adam", "lbfgs", "l-bfgs-b", "rmsprop", "sgd", "adamw", "adamax", "adagrad", "adabelief",
+                                    "amsgrad", "nadam", "lion", "yogi", "radam"])
 def test_the_names_the_ports_loops_take(method):
     cfg = _load(*DECKS["tests/time_test"])
     cfg["optimizer"]["method"] = method

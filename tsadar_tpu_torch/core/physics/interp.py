@@ -19,6 +19,10 @@ path, each with a hand-written CUDA kernel in ``tsadar_tpu_torch/ops``:
   grid in a device tensor, the semantics of the JAX package's wrapper of the same
   name (which leaves it unwired; the port drives it on the chi_R operands).
 
+* ``interp2d_cubic``: bicubic Hermite at scattered points (the multiplexed
+  angular loss's EDF rotation, ``utils.vector_tools.rotate_edf``); plain
+  tensor code, as the JAX package's is.
+
 ``lin_lookup``, ``cubic_lookup``, ``interp1d_linear_pallas`` and ``chi_bilinear_lookup`` are the
 differentiable lookups of ``tsadar_tpu_torch/ops``: a CPU tensor takes the
 plain forms, a CUDA tensor the kernels, forward and backward -- there is no
@@ -278,3 +282,67 @@ def interp1d_cubic_matmul(xq, x, f, fill):
     lo, hi = fill
     out = torch.where(xq < x[0], lo, out)
     return torch.where(xq > x[-1], hi, out)
+
+
+def _fd_slopes_1d(x, f):
+    """Second-order finite-difference slopes of f [..., N] along its last axis on the grid x [N]: the weighted
+    central difference inside, the one-sided second-order formulas at the two ends."""
+    h = x[1:] - x[:-1]
+    s = (f[..., 1:] - f[..., :-1]) / h
+    hl, hr = h[:-1], h[1:]
+    d_int = (s[..., 1:] * hl + s[..., :-1] * hr) / (hl + hr)
+    d0 = ((2.0 * h[0] + h[1]) * s[..., 0] - h[0] * s[..., 1]) / (h[0] + h[1])
+    dn = ((2.0 * h[-1] + h[-2]) * s[..., -1] - h[-1] * s[..., -2]) / (h[-1] + h[-2])
+    return torch.cat([d0[..., None], d_int, dn[..., None]], dim=-1)
+
+
+def _locate(xq, x):
+    """The cell i with x[i] <= xq < x[i + 1], clipped to [0, N - 2]."""
+    i = torch.searchsorted(x, xq.contiguous(), right=True) - 1
+    return torch.clamp(i, 0, x.shape[0] - 2)
+
+
+def _hermite_eval(t, h, f0, f1, d0, d1):
+    """Cubic Hermite on one cell, t normalized to [0, 1] (unclamped: it extrapolates)."""
+    t2 = t * t
+    t3 = t2 * t
+    h00 = 2.0 * t3 - 3.0 * t2 + 1.0
+    h10 = t3 - 2.0 * t2 + t
+    h01 = -2.0 * t3 + 3.0 * t2
+    h11 = t3 - t2
+    return h00 * f0 + h10 * h * d0 + h01 * f1 + h11 * h * d1
+
+
+def interp2d_cubic(xq, yq, x, y, f, extrap=True):
+    """Bicubic Hermite interpolation of f [Nx, Ny] (f[i, j] = f(x[i], y[j])) at the scattered points (xq, yq).
+
+    The JAX package's ``interp2d_cubic``, in plain tensors as there (it
+    reaches no kernel): finite-difference slopes along both axes and their
+    cross slope, the cell's four corners gathered, Hermite along x, then
+    along y.  ``extrap=True`` extrapolates the edge cells' polynomials; a
+    number fills the queries outside the grid instead.  Differentiable in f.
+    """
+    fx = _fd_slopes_1d(x, f.movedim(0, -1)).movedim(-1, 0)
+    fy = _fd_slopes_1d(y, f)
+    fxy = _fd_slopes_1d(y, fx)
+
+    ix, iy = _locate(xq, x), _locate(yq, y)
+    hx, hy = x[ix + 1] - x[ix], y[iy + 1] - y[iy]
+    tx, ty = (xq - x[ix]) / hx, (yq - y[iy]) / hy
+
+    def corners(a):
+        return a[ix, iy], a[ix + 1, iy], a[ix, iy + 1], a[ix + 1, iy + 1]
+
+    f00, f10, f01, f11 = corners(f)
+    fx00, fx10, fx01, fx11 = corners(fx)
+    fy00, fy10, fy01, fy11 = corners(fy)
+    fxy00, fxy10, fxy01, fxy11 = corners(fxy)
+    g0 = _hermite_eval(tx, hx, f00, f10, fx00, fx10)
+    g1 = _hermite_eval(tx, hx, f01, f11, fx01, fx11)
+    gy0 = _hermite_eval(tx, hx, fy00, fy10, fxy00, fxy10)
+    gy1 = _hermite_eval(tx, hx, fy01, fy11, fxy01, fxy11)
+    out = _hermite_eval(ty, hy, g0, g1, gy0, gy1)
+    if extrap is not True:
+        inside = (xq >= x[0]) & (xq <= x[-1]) & (yq >= y[0]) & (yq <= y[-1])
+        out = torch.where(inside, out, extrap)
+    return out

@@ -1,16 +1,21 @@
-"""Fit orchestration: the counterpart of ``tsadar_tpu.inverse.fitter`` for the 1D spectypes.
+"""Fit orchestration: the counterpart of ``tsadar_tpu.inverse.fitter``.
 
 ``_lineout_selection`` expands the deck's lineout range into pixels, trimmed
 to whole batches; ``load_data_for_fitting`` runs the data pipeline
-(``utils.process.prepare.prepare_data``) for the deck's shot (a multiplexed
-two-shot ARTS fit raises, as its loss does); ``fit`` runs the batched 1D loop
-(``loops.one_d_loop``: adam, or scipy's minimizer as the main deck asks) and
-the postprocess (refits, sigmas, final parameters;
-``utils.process.postprocess``, which also writes the run's files).  Stage
-seconds and status tags go to the tracker (``utils.mlflow_shim``) under the
-JAX package's names.  The angular fit's postprocess is not ported yet
-(ROADMAP.md §1 item 7), so ``fit`` takes the 1D spectypes only: for an ARTS
-image use ``loops.angular_optax``.
+(``utils.process.prepare.prepare_data``) for the deck's shot; ``fit`` runs the
+angular loop (``loops.angular_optax``) for an ARTS deck and the batched 1D
+loop (``loops.one_d_loop``: adam, the device L-BFGS, or scipy's minimizer as
+the main deck asks) for the others, then the postprocess (refits, sigmas,
+final parameters; ``utils.process.postprocess``, which also writes the run's
+files).  Stage seconds and status tags go to the tracker
+(``utils.mlflow_shim``) under the JAX package's names.
+
+A list ``data.shotnum`` (the multiplexed two-shot ARTS fit) fails in the JAX
+package: its ``prepare_data(config, shotNum)`` loads ``data.shotnum``, not its
+argument, so ``loadData`` is handed the list and finds no data.  The port's
+``load_data_for_fitting`` raises at that same point, with that reason
+(ROADMAP.md §3).  ``prepare_multiplexed`` gives the data that the list arm
+means to give, each shot prepared on its own; ``loops.angular_optax`` fits it.
 """
 
 import time
@@ -20,7 +25,14 @@ import numpy as np
 from ..utils import mlflow_shim as mlflow
 from ..utils.console import log_info
 from ..utils.process import postprocess, prepare
-from .loops import one_d_loop
+from .loops import angular_optax, one_d_loop
+
+MULTIPLEX_FAULT = (
+    "a multiplexed deck (a list data.shotnum) cannot be fitted through fitter.fit: the JAX package's "
+    "prepare_data(config, shotNum) loads data.shotnum, not shotNum (tsadar_tpu/utils/process/prepare.py:167-170), "
+    "so loadData is handed the list and finds no data, and the port keeps that code as it is (ROADMAP.md §3); "
+    "prepare the shots with fitter.prepare_multiplexed and fit them with loops.angular_optax"
+)
 
 
 def _lineout_selection(config):
@@ -40,15 +52,39 @@ def _lineout_selection(config):
 
 
 def load_data_for_fitting(config):
-    """(prepared data, scattering angles, axes) of the deck's shot."""
+    """(prepared data, scattering angles, axes) of the deck's shot.  A list of two shots is the JAX package's
+    multiplexed arm: only for ``angular_full``, and it fails where the JAX package's does (``MULTIPLEX_FAULT``)."""
     shot = config["data"]["shotnum"]
-    if isinstance(shot, list):
-        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 7)")
-    return prepare.prepare_data(config, shot)
+    if not isinstance(shot, list):
+        return prepare.prepare_data(config, shot)
+    if config["other"]["extraoptions"]["spectype"] != "angular_full":
+        raise NotImplementedError("Multiplexed data fitting is only available for angular data")
+    raise NotImplementedError(MULTIPLEX_FAULT)
+
+
+def prepare_multiplexed(config):
+    """The data of a multiplexed deck as the JAX package's list arm means it: the first shot of ``data.shotnum``
+    prepared with ``data.shotnum`` set to it, ``other.CCDsize`` put back, the second prepared the same way, and
+    its electron channels added as ``e_data_rot``, ``e_amps_rot`` and ``noiseE_rot`` with ``rot_angle``
+    (``data.shot_rot``).  ``config`` is changed as ``prepare_data`` changes it and keeps its list."""
+    shots, ccd_size = config["data"]["shotnum"], config["other"]["CCDsize"]
+    try:
+        config["data"]["shotnum"] = shots[0]
+        all_data, sa, all_axes = prepare.prepare_data(config, shots[0])
+        config["other"]["CCDsize"] = ccd_size  # prepare_data sets it to the image's; the second shot starts anew
+        config["data"]["shotnum"] = shots[1]
+        second, _, _ = prepare.prepare_data(config, shots[1])
+    finally:
+        config["data"]["shotnum"] = shots
+    all_data["e_data_rot"] = second["e_data"]
+    all_data["e_amps_rot"] = second["e_amps"]
+    all_data["noiseE_rot"] = second["noiseE"]
+    all_data["rot_angle"] = config["data"]["shot_rot"]
+    return all_data, sa, all_axes
 
 
 def fit(config, device=None, record=None):
-    """Fit the deck's lineouts of its shot: ``(final parameters, total loss)``.
+    """Fit the deck's lineouts of its shot, or its ARTS image: ``(final parameters, total loss)``.
 
     The fit runs on the card unless ``device="cpu"`` is given; the sigma-Hessian
     of the postprocess runs on the CPU in float64 either way.  The final
@@ -60,12 +96,11 @@ def fit(config, device=None, record=None):
     ``record`` (a dict), unrounded into it (``setup_seconds``,
     ``fit_seconds``, ``postprocess_seconds``) beside the loop's own record
     (``scipy``: scipy's results per batch; ``lbfgs``: the device L-BFGS's
-    values, evaluations and step sizes per step) and the postprocess's own
-    entries.  ``config``
+    values, evaluations and step sizes per step; ``angular``: the angular
+    loop's losses and chunks) and the postprocess's own entries.  ``config``
     is changed as the JAX package changes it (the lineout pixels, the
     quantities the data pipeline derives).
     """
-    postprocess.refuse_unported(config)  # the angular spectypes
     record = {} if record is None else record
 
     stage_start = time.perf_counter()
@@ -82,10 +117,14 @@ def fit(config, device=None, record=None):
     stage_start = time.perf_counter()
     mlflow.set_tag("status", "minimizing")
     log_info("minimizing")
-    loop_record = record.setdefault("lbfgs" if config["optimizer"]["method"] == "lbfgs" else "scipy", {})
-    fitted_weights, overall_loss, loss_fn = one_d_loop(
-        config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
-    )
+    if "angular" in config["other"]["extraoptions"]["spectype"]:
+        fitted_weights, overall_loss, loss_fn = angular_optax(config, all_data, sa, device=device,
+                                                              record=record.setdefault("angular", {}))
+    else:
+        loop_record = record.setdefault("lbfgs" if config["optimizer"]["method"] == "lbfgs" else "scipy", {})
+        fitted_weights, overall_loss, loss_fn = one_d_loop(
+            config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
+        )
     record["fit_seconds"] = time.perf_counter() - stage_start
     mlflow.log_metrics({"overall loss": float(overall_loss)})
     mlflow.log_metrics({"fit_time": round(record["fit_seconds"], 2)})

@@ -7,21 +7,24 @@ gradient from the device), ``_1d_device_lbfgs_loop_`` (``method: lbfgs``:
 ``optax.lbfgs()`` with its zoom line search, transcribed in ``lbfgs.py``, on
 the loss's device), ``one_d_loop`` (the batch dispatch with the optional
 sequential warm start) and ``angular_optax`` with its step loop
-``_angular_loop_`` (one ARTS image, ``adam`` or ``rmsprop``, early stopping).
+``_angular_loop_`` (one ARTS image or two multiplexed ones, the optimizer by
+its optax name, early stopping, checkpoints and state snapshots).
 
-Adam is ``torch.optim.Adam`` (betas 0.9/0.999, eps 1e-8): the same update as
-``optax.adam``.  ``optax.rmsprop`` (decay 0.9, eps 1e-8 inside the root, zero
-initial scale) is not ``torch.optim.RMSprop`` (eps outside the root): it is
-``RMSprop`` below.  The whole lineout batch is one set of [B] parameters, so
-one step is one forward and one backward of the batch; there is no mesh.
+The optimizers are ``optimizers.optimizer``'s, with optax's arithmetic.  The
+whole lineout batch is one set of [B] parameters, so one step is one forward
+and one backward of the batch; there is no mesh.
 
 The loops log to the tracker (``utils.mlflow_shim``) what the JAX loops log:
 ``fit_lossfn_init_time`` (the loss function's set-up), ``batch loss`` per
-batch, and in the adam loop ``fit_param_init_time``,
-``fit_first_dispatch_time`` and ``fit_final_loss_time``.
+batch, in the adam loop ``fit_param_init_time``, ``fit_first_dispatch_time``
+and ``fit_final_loss_time``, and in the angular loop ``epoch loss`` per epoch
+and ``fit_first_dispatch_time``.
 """
 
 import copy
+import os
+import pickle
+import tempfile
 import time
 
 import numpy as np
@@ -29,8 +32,11 @@ import torch
 
 from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
 from ..utils import mlflow_shim as mlflow
+from ..utils.console import log_info
+from ..utils.process.postprocess import _numpy
 from . import lbfgs
 from .loss import LossFunction, ravel, unravel_into
+from .optimizers import optimizer
 
 
 def _init_params(config, previous_weights, batch_size=None, device=None, dtype=None):
@@ -87,7 +93,7 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
         return np.inf, ts_params
 
     batch = loss_fn.device_batch(batch)  # once per fit, not per step
-    opt = _optimizer("adam", leaves, config["optimizer"]["learning_rate"])
+    opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"])
     best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
     best_rows = torch.full((batch["e_data"].shape[0],), np.inf, dtype=dtype, device=dev)
     best = [p.detach().clone() for p in leaves]
@@ -258,38 +264,13 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
     return all_weights, overall_loss, loss_fn
 
 
-class RMSprop(torch.optim.Optimizer):
-    """``optax.rmsprop(lr)``: nu = decay nu + (1 - decay) g^2 from nu = 0, p -= lr g / sqrt(nu + eps)."""
-
-    def __init__(self, params, lr, decay=0.9, eps=1e-8):
-        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
-
-    @torch.no_grad()
-    def step(self):
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                nu = self.state[p].setdefault("nu", torch.zeros_like(p))
-                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
-                p.addcdiv_(p.grad, torch.sqrt(nu + group["eps"]), value=-group["lr"])
-
-
-def _optimizer(method, leaves, lr):
-    if method == "adam":
-        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    if method == "rmsprop":
-        return RMSprop(leaves, lr=lr)
-    raise NotImplementedError(f"optimizer method {method!r} is not ported yet: the angular fit takes adam and rmsprop (ROADMAP.md §1 item 7)")
-
-
-def _angular_batch(all_data, sl):
-    """ARTS batch for the resolution-unit window ``sl``: the electron channels are windowed,
-    the ion channels stay whole except the noise window."""
+def _angular_batch(all_data, sl, rot=False):
+    """ARTS batch for the resolution-unit window ``sl``: the electron channels are windowed (from the second
+    shot's ``*_rot`` channels with ``rot``), the ion channels stay whole except the noise window."""
     return {
-        "e_data": all_data["e_data"][sl, :],
-        "e_amps": all_data["e_amps"][sl, :],
-        "noise_e": all_data["noiseE"][sl, :],
+        "e_data": all_data["e_data_rot" if rot else "e_data"][sl, :],
+        "e_amps": all_data["e_amps_rot" if rot else "e_amps"][sl, :],
+        "noise_e": all_data["noiseE_rot" if rot else "noiseE"][sl, :],
         "i_data": all_data["i_data"],
         "i_amps": all_data["i_amps"],
         "noise_i": all_data["noiseI"][sl, :],
@@ -297,23 +278,26 @@ def _angular_batch(all_data, sl):
 
 
 def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
-    """ARTS fit of one image with early stopping: ``(best parameters, last counted epoch's loss, loss function)``.
+    """ARTS fit of one image, or of two multiplexed ones, with early stopping: ``(best parameters, last counted
+    epoch's loss, loss function)``.
 
     The set-up of the JAX loop, then ``_angular_loop_``.  ``config`` is changed
     as there: batch size 1, and the lineout window divided by
     ``other.ang_res_unit``.  The parameters are unbatched, made from the deck.
-    Checkpoints, state snapshots and the per-epoch metrics are left out; the
-    tracker gets ``fit_lossfn_init_time``.  ``record``: see ``_angular_loop_``.
+    With a list ``data.shotnum`` the batch is ``{"b1", "b2"}``: the window of
+    the image and of the second shot's (``*_rot``), whose theory is the EDF
+    rotated by ``data.shot_rot``.  The tracker gets ``fit_lossfn_init_time``.
+    ``record``: see ``_angular_loop_``.
     """
     t_enter = time.perf_counter()
     config["optimizer"]["batch_size"] = 1
     lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
     lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
-    if isinstance(config["data"].get("shotnum"), list):
-        raise NotImplementedError("the multiplexed two-shot angular fit is not ported yet (ROADMAP.md §1 item 7)")
-    batch = _angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
-
-    loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
+    sl = slice(lineouts["start"], lineouts["end"])
+    batch1 = _angular_batch(all_data, sl)
+    multiplexed = isinstance(config["data"].get("shotnum"), list)
+    batch = {"b1": batch1, "b2": _angular_batch(all_data, sl, rot=True)} if multiplexed else batch1
+    loss_fn = LossFunction(config, sa, batch1, device=device, dtype=dtype)
     mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t_enter, 2)})
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     ts_params = ThomsonParams.create(config["parameters"], 1, activate=True, device=dev, dtype=dtype, batch=False)
@@ -321,32 +305,71 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     return ts_params, epoch_loss, loss_fn
 
 
+def _unnormed_snapshot(config, ts_params, best):
+    """The unnormed parameters, as numpy, of ``ts_params`` with its trainable leaves set to ``best``."""
+    snap = copy.deepcopy(ts_params)
+    with torch.no_grad():
+        for p, b in zip(get_filter_spec(config["parameters"], snap).values(), best):
+            p.copy_(b)
+    return _numpy(snap.get_unnormed_params())
+
+
+def _log_state_weights(state_weights):
+    """The snapshots {epoch: parameters}, pickled into ``state_weights.txt`` and logged as an artifact."""
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "state_weights.txt")
+        with open(path, "wb") as fh:
+            fh.write(pickle.dumps(state_weights))
+        mlflow.log_artifact(path)
+
+
 def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None):
     """The steps of the ARTS fit: leaves the best-so-far parameters in ``ts_params`` (unbatched) and
     returns the last counted epoch's loss.
 
-    The semantics of the JAX loop.  Each step's pre-update loss is credited to
-    the post-update parameters; best-so-far (from the JAX loop's initial
-    100.0) lives on the device; the host reads the losses once per
+    The semantics of the JAX loop.  ``optimizer.method`` names the optimizer
+    (``optimizers.METHODS``).  Each step's pre-update loss is credited to the
+    post-update parameters; best-so-far (from the JAX loop's initial 100.0)
+    lives on the device; the host reads the losses once per
     ``optimizer.chunk_size`` steps (default 8) and replays the per-epoch stop
     counters over them: more than five improvements smaller than 1e-6 in a
     row, or more than five rising epochs, end the fit, chunk-granular.
-    ``record`` (a dict), if given, gets ``losses`` (every counted epoch),
-    ``chunk_seconds`` and ``chunk_steps``.
+
+    With ``optimizer.checkpoint_dir`` the fit first resumes from the newest
+    checkpoint there (at its epoch label, with a fresh best-so-far and fresh
+    stop counters, as the JAX loop does), and saves the trainable leaves and
+    the optimizer's state (``utils.checkpoint``) after a chunk whose counted
+    epochs include a multiple of ``optimizer.checkpoint_freq`` (default 50),
+    labelled with its last counted epoch, unless the fit stopped in it.  With
+    ``optimizer.save_state`` the best parameters so far are snapshotted at
+    each counted epoch that is a multiple of ``optimizer.save_state_freq``;
+    the snapshots are pickled into ``state_weights.txt`` and logged as an
+    artifact at the end.  The tracker gets ``epoch loss`` for each counted
+    epoch (its step the epoch) and ``fit_first_dispatch_time`` (the first
+    chunk, read back).  ``record`` (a dict), if given, gets ``losses`` (every
+    counted epoch), ``chunk_seconds``, ``chunk_steps`` and ``start_epoch``.
     """
+    from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
+    opt_cfg = config["optimizer"]
     trainable = get_filter_spec(config["parameters"], ts_params)
     leaves = list(trainable.values())
-    opt = _optimizer(config["optimizer"]["method"], leaves, config["optimizer"]["learning_rate"])
+    opt = optimizer(opt_cfg["method"], leaves, opt_cfg["learning_rate"])
+    ckpt_dir, ckpt_freq = opt_cfg.get("checkpoint_dir"), opt_cfg.get("checkpoint_freq", 50)
+    start_epoch = restore_checkpoint(ckpt_dir, trainable, opt) if ckpt_dir else 0
+    if start_epoch:
+        log_info(f"resumed angular fit from checkpoint at epoch {start_epoch}")
 
     batch = loss_fn.device_batch(batch)  # once per fit, not per step
     best_loss_dev = torch.full((), 100.0, dtype=dtype, device=dev)
     best = [p.detach().clone() for p in leaves]
     epoch_loss, best_loss = 0.0, 100.0
     stalled_epochs = rising_epochs = 0
-    chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
-    num_epochs = config["optimizer"]["num_epochs"]
-    i_epoch, stop = 0, False
+    state_weights = {}
+    chunk = max(1, int(opt_cfg.get("chunk_size", 8)))
+    num_epochs = opt_cfg["num_epochs"]
+    i_epoch, stop = start_epoch, False
     while i_epoch < num_epochs and not stop:
         length = min(chunk, num_epochs - i_epoch)
         t0 = time.perf_counter()
@@ -362,21 +385,37 @@ def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None)
                 best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
             values.append(value)
         losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
+        if i_epoch == start_epoch:
+            mlflow.log_metrics({"fit_first_dispatch_time": round(time.perf_counter() - t0, 2)})
         n_counted = length  # the epochs a per-epoch loop would have reached
         for j, epoch_loss in enumerate(losses):
+            mlflow.log_metrics({"epoch loss": epoch_loss}, step=i_epoch + j)
             if epoch_loss < best_loss:
                 improvement, best_loss = best_loss - epoch_loss, epoch_loss
                 if improvement < 1e-6:
                     stalled_epochs += 1
-                    stop = stalled_epochs > 5  # the change in loss stayed under 1e-6
+                    stop = stalled_epochs > 5
+                    if stop:
+                        log_info("Minimizer exited due to change in loss < 1e-6")
                 else:
                     stalled_epochs = rising_epochs = 0
             elif epoch_loss > best_loss:
                 rising_epochs += 1
-                stop = rising_epochs > 5  # the loss keeps rising
+                stop = rising_epochs > 5
+                if stop:
+                    log_info("Minimizer exited due to increase in loss")
             if stop:
                 n_counted = j + 1
                 break
+        counted = range(i_epoch, i_epoch + n_counted)
+        if opt_cfg.get("save_state", False):
+            hits = [e for e in counted if e % opt_cfg["save_state_freq"] == 0]
+            if hits:
+                snap = _unnormed_snapshot(config, ts_params, best)
+                state_weights.update((e, snap) for e in hits)
+        # no checkpoint past an early stop: a resume would go on with a fit that has ended
+        if ckpt_dir and not stop and any(e % ckpt_freq == 0 for e in counted):
+            save_checkpoint(ckpt_dir, trainable, opt, i_epoch + n_counted - 1)
         if record is not None:
             record.setdefault("losses", []).extend(losses[:n_counted])
             record.setdefault("chunk_seconds", []).append(time.perf_counter() - t0)
@@ -388,4 +427,7 @@ def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None)
             p.copy_(b)
     for p in leaves:
         p.grad = None
+    if record is not None:
+        record["start_epoch"] = start_epoch
+    _log_state_weights(state_weights)
     return epoch_loss

@@ -10,7 +10,11 @@ and ``value_and_grad`` differentiates with ``torch.autograd``; on the card the
 backward runs through the hand-written kernels.
 
 The angular arm is the same code on unbatched parameters: ``e_data`` holds the
-lineout window of the image in resolution units [n_units, wavelengths].
+lineout window of the image in resolution units [n_units, wavelengths].  With a
+list ``data.shotnum`` the loss is multiplexed: the batch is ``{"b1", "b2"}``,
+two images of one plasma, and the second image's theory is that of the EDF
+turned by ``data.shot_rot`` degrees (``utils.vector_tools.rotate_edf``); the
+errors of both images are summed.
 
 The scipy interface (``vg_loss``, ``loss``) takes and gives float64 numpy
 vectors of the active parameters in JAX's ``ravel_pytree`` order
@@ -20,10 +24,6 @@ sigma loss ``_loss_for_hess_fn_`` over that vector, by a second backward pass
 (autograd of autograd): they run on CPU float64 parameters inside
 ``interp.plain_forms()``, as the JAX package's Hessian runs with its Pallas
 kernels disabled.
-
-Not ported yet (each raises ``NotImplementedError``): the multiplexed two-shot
-angular loss with its EDF rotation and the 2V moment penalties (ROADMAP.md §1
-item 7).
 """
 
 import math
@@ -34,6 +34,7 @@ import torch
 from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params.distributions import act
 from ..core.params.ts_params import get_filter_spec, ravel_order
+from ..utils.vector_tools import rotate_edf
 
 
 def _masked_reduce(err, mask, reduce_func):
@@ -60,8 +61,8 @@ class LossFunction:
             self.e_norm = float(torch.as_tensor(dummy_batch["e_data"]).max())
         else:
             self.i_norm = self.e_norm = 1.0
-        if isinstance(cfg["data"].get("shotnum"), list):
-            raise NotImplementedError("the multiplexed two-shot angular loss is not ported yet (ROADMAP.md §1 item 7)")
+        # the multiplexed two-shot angular fit: the second image's EDF is turned by data.shot_rot
+        self.multiplex_ang = isinstance(cfg["data"].get("shotnum"), list)
         self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype)
         self.scattering_angles, self._dummy_batch, self._host_f64 = scattering_angles, dummy_batch, None
 
@@ -74,7 +75,10 @@ class LossFunction:
         return self._host_f64
 
     def device_batch(self, batch):
-        """The batch as tensors on the loss's device: convert once per fit, not per call."""
+        """The batch as tensors on the loss's device (both images of a multiplexed batch): convert once per fit,
+        not per call."""
+        if self.multiplex_ang:
+            return {k: self.ts_diag.device_batch(b) for k, b in batch.items()}
         return self.ts_diag.device_batch(batch)
 
     # ------------------------------------------------------------------ errors
@@ -134,12 +138,23 @@ class LossFunction:
         """(total loss, sqdev, ThryE, ThryI, physical parameters, per-lineout row losses)."""
         batch = self.device_batch(batch)
         physical = ts_params()
-        ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(physical, batch)
-        if denom is None:
-            denom = [ThryI, ThryE]
-        i_error, e_error, sqdev, i_row, e_row = self.calc_ei_error(
-            batch, ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func
-        )
+        if self.multiplex_ang:
+            ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(physical, batch["b1"])
+            electron = physical["electron"]
+            fe = rotate_edf(torch.squeeze(electron["fe"]), torch.squeeze(electron["v"]), self.cfg["data"]["shot_rot"] * math.pi / 180.0)
+            ThryE_rot = self.ts_diag.spectra(physical | {"electron": electron | {"fe": fe}}, batch["b2"])[0]
+            # as in the JAX package: the first image's ion theory for both, the second image's sqdev, and
+            # ``denom`` as given (a multiplexed postprocess, denom None, cannot run there)
+            i1, e1, _, ir1, er1 = self.calc_ei_error(batch["b1"], ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func)
+            i2, e2, sqdev, ir2, er2 = self.calc_ei_error(batch["b2"], ThryI, lamAxisI, ThryE_rot, lamAxisE, denom, reduce_func)
+            i_error, e_error, i_row, e_row = i1 + i2, e1 + e2, ir1 + ir2, er1 + er2
+        else:
+            ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(physical, batch)
+            if denom is None:
+                denom = [ThryI, ThryE]
+            i_error, e_error, sqdev, i_row, e_row = self.calc_ei_error(
+                batch, ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func
+            )
         ion_scale = self.cfg["data"]["ion_loss_scale"]
         total_loss = ion_scale * i_error + e_error + self.penalties(physical, ts_params)
         # the (global) penalty term is left out of the per-lineout selection criterion
@@ -261,10 +276,22 @@ class LossFunction:
         return total
 
     def moment_penalties(self, params):
-        """(density, temperature, momentum) moment losses of the physical 1V EDF."""
-        if self.cfg["parameters"]["electron"]["fe"].get("dim", 1) == 2:
-            raise NotImplementedError("2V moment penalties are not ported yet (ROADMAP.md §1 item 7)")
+        """(density, temperature, momentum) moment losses of the physical EDF.
+
+        1V: per lineout, the zeroth, second and first moments against 1, 1
+        and 0, averaged.  2V (the unbatched [N, N] EDF on the square grid v
+        [N]): the zeroth moment against 1, the second moment sum(f |v|^2)
+        dv^2 against 2 (unit variance a dimension), and both first moments
+        against 0, as the JAX package forms them.
+        """
         fe, v = params["electron"]["fe"], params["electron"]["v"]
+        if self.cfg["parameters"]["electron"]["fe"].get("dim", 1) == 2:
+            dv = v[1] - v[0]
+            density_loss = torch.square(1.0 - torch.sum(fe) * dv**2)
+            vsq = v[:, None] ** 2 + v[None, :] ** 2
+            temperature_loss = torch.square(1.0 - torch.sum(fe * vsq) * dv**2 / 2.0)
+            momentum_loss = torch.square(torch.sum(fe * v[:, None]) * dv**2) + torch.square(torch.sum(fe * v[None, :]) * dv**2)
+            return density_loss, temperature_loss, momentum_loss
         dv = (v[..., 1] - v[..., 0])[..., None]
         density_loss = torch.mean(torch.square(1.0 - torch.sum(fe * dv, dim=-1)))
         temperature_loss = torch.mean(torch.square(1.0 - torch.sum(fe * v**2 * dv, dim=-1)))

@@ -11,9 +11,9 @@ settings of the JAX package change form: ``other.profile: true`` records a
 ``torch.profiler`` trace of the mode, logged as the artifact directory
 ``torch_trace``; ``TSADAR_MULTIHOST`` (the JAX package's multi-host TPU
 slices) raises, since the port runs on one GPU (ROADMAP.md §1 item 8).
-``_configure_jax`` has no counterpart.  A mode the port cannot run yet (a fit
-of an angular deck, ROADMAP.md §1 item 7) and a device it cannot reach raise
-before a run is registered.
+``_configure_jax`` has no counterpart.  A deck that fails validation and a
+device the port cannot reach raise before a run is registered (the JAX
+package registers first).
 """
 
 import contextlib
@@ -30,7 +30,6 @@ from .inverse import fitter
 from .utils import mlflow_shim as mlflow
 from .utils.config import merge_configs
 from .utils.console import log_info
-from .utils.process import postprocess
 from .utils.schema import validate_config
 
 BASE_TEMPDIR = os.environ.get("BASE_TEMPDIR", None)
@@ -87,13 +86,6 @@ def _check_start(mode, device):
     resolve_device(device)
 
 
-def _refuse_unported(config, mode):
-    """Raise for a mode of the deck that the port cannot run yet: the fit of an angular deck (ROADMAP.md §1
-    item 7)."""
-    if mode.casefold() == "fit":
-        postprocess.refuse_unported(config)
-
-
 def run(cfg_path, mode, device=None, record=None):
     """Run the decks in ``cfg_path`` in ``mode`` (fit, forward or series) inside a new tracked run: its id.
 
@@ -105,7 +97,6 @@ def run(cfg_path, mode, device=None, record=None):
     all_configs = _load_decks(cfg_path)
     config = merge_configs(all_configs["defaults"], all_configs["inputs"])
     validate_config(config, mode=mode)
-    _refuse_unported(config, mode)
     run_id = _register(all_configs)
     with mlflow.start_run(run_id=run_id, log_system_metrics=True):
         _run_(config, mode=mode, device=device, record=record)
@@ -151,7 +142,6 @@ def run_job(run_id, mode, nested, device=None):
                 all_configs[k] = yaml.safe_load(fi)
         config = merge_configs(all_configs["defaults"], all_configs["inputs"])
         validate_config(config, mode=mode)
-        _refuse_unported(config, mode)
         _run_(config, mode, device=device)
 
 
@@ -165,6 +155,5 @@ def run_for_app(run_id, device=None):
         for spec in ("epw", "iaw"):
             if config["data"]["filenames"].get(spec) is not None:
                 config["data"]["filenames"][f"{spec}-local"] = os.path.join(artifacts, config["data"]["filenames"][spec])
-        _refuse_unported(config, "fit")
         _run_(config, mode="fit", device=device)
     return mlflow_run.info.run_id

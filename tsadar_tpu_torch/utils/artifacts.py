@@ -58,14 +58,19 @@ def write_csv(path, columns):
 
 def get_final_params(config, all_params, all_axes, td=None):
     """The fitted parameters by lineout as numpy arrays, ``"{param}_{species}"``, led by ``"lineout pixel"`` and
-    the data's x-axis label, a pointwise EDF as ``"fe"``; with ``td``, also ``csv/learned_parameters.csv`` (the
+    the data's x-axis label, a pointwise EDF as ``"fe"``, a harmonic one's profiles as ``"flm{l}{m}"``; with ``td``, also ``csv/learned_parameters.csv`` (the
     scalar columns) and, for a pointwise EDF, ``csv/learned_dist.csv``."""
     params, dist = {}, {}
     for species, values in all_params.items():
         for k, v in values.items():
             if k in ("fe", "f"):
                 dist["fe"] = np.squeeze(np.asarray(v))
-            elif k != "flm":
+            elif k == "flm":  # a harmonic EDF: its coefficient profiles as "flm{l}{m}", as the JAX package keys them
+                flm = v[0] if isinstance(v, list) else v
+                for l, sub in flm.items():
+                    for m, fv in sub.items() if isinstance(sub, dict) else ():
+                        dist["fe" if m == "fvxvy" else "v" if m == "v" else f"flm{l}{m}"] = np.squeeze(np.asarray(fv))
+            else:
                 params[k + "_" + species] = np.asarray(v).reshape(-1)
     lead = {}
     try:

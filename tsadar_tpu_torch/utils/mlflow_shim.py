@@ -134,6 +134,16 @@ def set_tag(key, value):
     _flush()
 
 
+def log_artifact(path, artifact_path=None):
+    if HAVE_MLFLOW:
+        return _mlflow.log_artifact(path, artifact_path)
+    if _state["run_dir"] is None:
+        return
+    dst = os.path.join(_state["run_dir"], "artifacts", artifact_path or "")
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(path, dst)
+
+
 def log_artifacts(path, artifact_path=None):
     if HAVE_MLFLOW:
         return _mlflow.log_artifacts(path, artifact_path)

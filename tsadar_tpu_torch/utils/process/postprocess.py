@@ -1,6 +1,6 @@
-"""Postprocess of a 1V fit: refits of bad lineouts, the sigma-Hessian, the final parameters.
+"""Postprocess of a fit: refits of bad lineouts, the sigma-Hessian, the final parameters, the run's files.
 
-Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
+Counterpart of ``tsadar_tpu.utils.process.postprocess``:
 
 * ``recalculate_with_chosen_weights``: the per-lineout loss, squared deviations
   and fitted spectra of every batch from its fitted parameters
@@ -27,6 +27,14 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
   fitted again alone (batch size 1), warm-started from the previous lineout's
   fitted values, and a better refit is written into the lineout's own
   (batch, slot) -- the JAX package's correction of upstream's (i - 1) // bs;
+* the angular (``angular_full``) arm of ``recalculate_with_chosen_weights``:
+  the image's lineout window with the one set of fitted parameters, and with
+  sigmas the dense Hessian of the unbatched parameters (on the CPU in
+  float64, as above), skipped with the JAX package's log line where the
+  active parameters exceed 2048 (a pointwise 2D EDF);
+* ``process_angular_data``: the recalculation, the final parameters, and the
+  angular files (the image and its fit, the sigmas of the fit as
+  ``sigmas_fe``, the EDF); an angular fit has no refits;
 * ``postprocess`` and ``process_data``: the refits, then the recalculation,
   the final parameters, and the run's files (``utils.artifacts``: the CSVs of
   the fitted parameters and the sigmas, the data and fits as ``.npz`` and
@@ -38,8 +46,7 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess`` for the 1D spectypes:
   ``plotting time`` (the writing of the files; the name is kept so that
   dashboards line up) and the tags ``plotting`` and ``done plotting``.
 
-Left out: the figures (the card's machine has no matplotlib).  The angular
-spectype raises (ROADMAP.md §1 item 7).  Timings, and the fitted spectra with
+Left out: the figures (the card's machine has no matplotlib).  Timings, and the fitted spectra with
 their breakdown, also go into an optional ``record`` dict, unrounded.  Where
 the JAX package logs a breakdown that fails and goes on, the port lets the
 failure stand.
@@ -59,12 +66,6 @@ from .. import artifacts
 from .. import mlflow_shim as mlflow
 from ..config import flatten, unflatten
 from ..console import log_info
-
-
-def refuse_unported(config):
-    """Raise for the postprocess options that are not ported yet, before any work is done."""
-    if "angular" in config["other"]["extraoptions"]["spectype"]:
-        raise NotImplementedError("the angular postprocess is not ported yet (ROADMAP.md §1 item 7)")
 
 
 def _rows(all_data, inds):
@@ -106,9 +107,12 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
 
     A Hessian that fails is logged and the sigmas are left at zero, as in the
     JAX package.  ``record`` gets ``recalc_arrayloss_seconds`` and
-    ``recalc_hessian_seconds``.
+    ``recalc_hessian_seconds``, and the failure's message as ``sigma_error``.
+    For ``angular_full``, ``fitted_weights`` is one unbatched set, ``fits["ele"]``
+    and ``sqdevs["ele"]`` the window's arrays, and the parameters are not
+    joined across batches (there is one), as in the JAX package.
     """
-    refuse_unported(config)
+    angular = config["other"]["extraoptions"]["spectype"] == "angular_full"
     losses = np.zeros_like(sample_indices, dtype=np.float64)
     sample_indices.sort()
     batch_indices = np.reshape(sample_indices, (-1, config["optimizer"]["batch_size"]))
@@ -122,7 +126,8 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
                 all_params[group].setdefault(name, []).append(_numpy(value))
     for group in all_params:
         for name in all_params[group]:
-            all_params[group][name] = np.concatenate([np.atleast_1d(a) for a in all_params[group][name]])
+            if not angular:
+                all_params[group][name] = np.concatenate([np.atleast_1d(a) for a in all_params[group][name]])
 
     def grid_shape(arr):
         a = np.asarray(arr)
@@ -134,27 +139,52 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
     sigmas = np.zeros((len(sample_indices), max(num_params, 1)))
 
     arrayloss_s = hessian_s = 0.0
-    for i_batch, inds in enumerate(batch_indices):
-        batch = _rows(all_data, inds)
+
+    def sigmas_of(weights, batch, n, max_params=None, what="Hessian"):
+        """The sigmas of one batch, or None where the Hessian fails (logged, as in the JAX package)."""
+        nonlocal hessian_s
         t0 = time.perf_counter()
-        loss, sqds, ThryE, ThryI, _ = loss_fn.array_loss(fitted_weights[i_batch], batch)
-        losses[inds] = _numpy(loss)
-        arrayloss_s += time.perf_counter() - t0
-        _assign(sqdevs["ele"], inds, sqds["ele"])
-        _assign(sqdevs["ion"], inds, sqds["ion"])
-        _assign(fits["ele"]["total_spec"], inds, ThryE)
-        _assign(fits["ion"]["total_spec"], inds, ThryI)
-        if config.get("plotting", {}).get("detailed_breakdown", False):
-            _breakdown(fits, loss_fn.ts_diag.spectrum_breakdown(fitted_weights[i_batch], batch), inds, e_shape, i_shape)
-        if calc_sigma:
-            t0 = time.perf_counter()
-            try:
-                hess = batch_flat_hessian(config, loss_fn, fitted_weights[i_batch], batch)
-                sigmas[inds] = get_sigmas(hess, config["optimizer"]["batch_size"])
-            except Exception as e:  # noqa: BLE001  the JAX package's behaviour: no sigmas, the fit stands
-                log_info(f"Error calculating Hessian ({e}); skipping uncertainties")
-                calc_sigma = False
+        try:
+            return get_sigmas(batch_flat_hessian(config, loss_fn, weights, batch, max_params=max_params), n)
+        except Exception as e:  # noqa: BLE001  the JAX package's behaviour: no sigmas, the fit stands
+            log_info(f"Error calculating {what} ({e}); skipping uncertainties")
+            if record is not None:
+                record["sigma_error"] = str(e)
+            return None
+        finally:
             hessian_s += time.perf_counter() - t0
+
+    if angular:
+        from ...inverse.loops import _angular_batch
+
+        batch = _angular_batch(all_data, slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"]))
+        t0 = time.perf_counter()
+        loss, sqds, ThryE, _, _ = loss_fn.array_loss(fitted_weights[0], batch)
+        fits["ele"], sqdevs["ele"], losses = _numpy(ThryE), _numpy(sqds["ele"]), _numpy(loss)
+        arrayloss_s += time.perf_counter() - t0
+        if calc_sigma:
+            # a pointwise 2D EDF's nvx^2 weights exceed the budget: skipped, as in the JAX package
+            angular_sigmas = sigmas_of(fitted_weights[0], batch, 1, max_params=2048, what="angular Hessian")
+            sigmas = sigmas if angular_sigmas is None else angular_sigmas
+    else:
+        for i_batch, inds in enumerate(batch_indices):
+            batch = _rows(all_data, inds)
+            t0 = time.perf_counter()
+            loss, sqds, ThryE, ThryI, _ = loss_fn.array_loss(fitted_weights[i_batch], batch)
+            losses[inds] = _numpy(loss)
+            arrayloss_s += time.perf_counter() - t0
+            _assign(sqdevs["ele"], inds, sqds["ele"])
+            _assign(sqdevs["ion"], inds, sqds["ion"])
+            _assign(fits["ele"]["total_spec"], inds, ThryE)
+            _assign(fits["ion"]["total_spec"], inds, ThryI)
+            if config.get("plotting", {}).get("detailed_breakdown", False):
+                _breakdown(fits, loss_fn.ts_diag.spectrum_breakdown(fitted_weights[i_batch], batch), inds, e_shape, i_shape)
+            if calc_sigma:
+                batch_sigmas = sigmas_of(fitted_weights[i_batch], batch, config["optimizer"]["batch_size"])
+                if batch_sigmas is None:
+                    calc_sigma = False
+                else:
+                    sigmas[inds] = batch_sigmas
     mlflow.log_metrics({"recalc_arrayloss_time": round(arrayloss_s, 2), "recalc_hessian_time": round(hessian_s, 2)})
     if record is not None:
         record["recalc_arrayloss_seconds"] = record.get("recalc_arrayloss_seconds", 0.0) + arrayloss_s
@@ -191,7 +221,6 @@ def batch_flat_hessian(config, loss_fn, weights, batch, max_params=None, force_d
     device (module docstring).  Raises ValueError if ``max_params`` is given
     and P exceeds it.
     """
-    host = loss_fn.host_f64()
     weights64 = copy.deepcopy(weights).to(device="cpu", dtype=torch.float64)
     batch64 = {k: np.asarray(_numpy(v), dtype=np.float64) for k, v in batch.items()}
     trainable = get_filter_spec(config["parameters"], weights64)
@@ -199,6 +228,7 @@ def batch_flat_hessian(config, loss_fn, weights, batch, max_params=None, force_d
     P = sum(p.numel() for p in leaves)
     if max_params is not None and P > max_params:
         raise ValueError(f"{P} active parameters exceed the hessian budget ({max_params})")
+    host = loss_fn.host_f64()
     B = batch64["e_data"].shape[0] if batch64["e_data"].ndim > 1 else 1
     with plain_forms():
         if force_dense or B == 1 or any(tuple(p.shape) != (B,) for p in leaves):
@@ -294,25 +324,31 @@ def _write_slot(tgt, src, slot, bs):
 def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record=None):
     """The refits (``other.refit``), then ``process_data``: the final parameters
     (``utils.artifacts.get_final_params``), with the run's files written into a temporary directory and logged
-    as the run's artifacts.  Outside a run the tracker would drop them: no file is written."""
-    refuse_unported(config)
+    as the run's artifacts; for ``angular_full`` no refits, and ``process_angular_data``.  Outside a run the
+    tracker would drop them: no file is written."""
+    angular = config["other"]["extraoptions"]["spectype"] == "angular_full"
     t0 = time.perf_counter()
     init_losses = []
-    if config["other"]["refit"]:
+    if not angular and config["other"]["refit"]:
         init_losses = refit_bad_fits(config, sa, sample_indices, all_data, loss_fn, fitted_weights, record)
     refit_seconds = time.perf_counter() - t0
     mlflow.log_metrics({"refitting time": round(refit_seconds, 2)})
     if record is not None:
         record["refit_seconds"] = refit_seconds
+    def process(td):
+        if angular:
+            return process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, t0, td,
+                                        record)
+        return process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, init_losses, t0, td,
+                            record)
+
     if mlflow.active_run() is None:
-        t1, final_params = process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa,
-                                        init_losses, t0, None, record)
+        t1, final_params = process(None)
     else:
         with tempfile.TemporaryDirectory() as td:
             for dirname in ("binary", "csv"):
                 os.makedirs(os.path.join(td, dirname), exist_ok=True)
-            t1, final_params = process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa,
-                                            init_losses, t0, td, record)
+            t1, final_params = process(td)
             mlflow.log_artifacts(td)
     writing_seconds = time.perf_counter() - t1
     mlflow.log_metrics({"plotting time": round(writing_seconds, 2)})
@@ -347,6 +383,31 @@ def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_wei
         artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
     if config["other"]["calc_sigmas"]:
         final_params["sigmas"] = dict(zip(names, sigmas.T))
+    return t_files, final_params
+
+
+def process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, t1, td, record=None):
+    """``process_data`` of an ARTS fit (one unbatched set of parameters, ``fitted_weights``): the recalculation with
+    sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None, the angular files of
+    ``utils.artifacts``: the image and its fit, the sigmas as ``sigmas_fe`` and the EDF.  Returns ``(the time the
+    files' writing began, final parameters)``; ``record`` as in ``process_data``."""
+    t0 = time.perf_counter()
+    losses, _, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
+        config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], [fitted_weights], record
+    )
+    mlflow.log_metrics({"postprocessing time": round(time.perf_counter() - t1, 2)})
+    mlflow.set_tag("status", "plotting")
+    if record is not None:
+        record.update(losses=losses, fits=fits, sigmas=sigmas, postprocessing_seconds=time.perf_counter() - t0)
+    t_files = time.perf_counter()
+    final_params = artifacts.get_final_params(config, all_params, all_axes, td)
+    if td is not None:
+        artifacts.plot_data_angular(config, fits, all_data, all_axes, td)
+        if config["other"]["calc_sigmas"]:
+            artifacts.save_sigmas_fe(final_params, None, sigmas, td)
+        artifacts.save_dist(final_params, td)
+    if config["other"]["calc_sigmas"]:
+        final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights), sigmas.T))
     return t_files, final_params
 
 

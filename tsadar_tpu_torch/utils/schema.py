@@ -11,14 +11,16 @@ dispatches on are held strictly: enum values, numeric types, the order of
 bounds, and the sections each mode needs.
 
 One departure: the JAX package accepts any optimizer name that ``optax``
-has (its ARTS loop takes one by name).  The port cannot import optax, and its
-angular loop takes ``adam`` and ``rmsprop`` (ROADMAP.md §1 item 7 ports the
-others), so those and the 1D loops' names are what it accepts; any other
-name fails with a message of the same form.
+has (its ARTS loop takes one by name).  The port cannot import optax: it
+accepts the 1D loops' names and the optax names it has ported
+(``inverse.optimizers.METHODS``); any other name fails with a message that
+lists them (ROADMAP.md §3; the rest are queued under §1 item 7e).
 """
 
 import difflib
 import numbers
+
+from ..inverse.optimizers import METHODS
 
 _NUM = numbers.Real  # YAML ints and floats; bool excluded explicitly below
 _MISSING = object()
@@ -131,7 +133,8 @@ _BACKGROUND_TYPES = ("pixel", "ps", "um", "Shot", "Fit", "auto")
 _LOSS_METHODS = ("l1", "l2", "log-cosh", "poisson")
 _GRAD_METHODS = ("AD", "FD")
 _BUILTIN_METHODS = ("adam", "lbfgs", "l-bfgs-b")
-_ANGULAR_METHODS = ("adam", "rmsprop")  # the optax optimizers the angular loop takes (inverse/loops.py)
+_ANGULAR_METHODS = METHODS  # the optax optimizers the angular loop takes
+PORTED_OPTAX = f"; the port takes these optax optimizers: {_ANGULAR_METHODS}"  # the message's end, after the JAX package's
 
 
 def _check_parameters(cfg):
@@ -216,7 +219,7 @@ def _check_optimizer(cfg, required):
         _fail(
             ("optimizer", "method"),
             f"{method!r} is not one of {_BUILTIN_METHODS} or an optax optimizer"
-            f"{_suggest(method, _BUILTIN_METHODS)}",
+            f"{_suggest(method, _BUILTIN_METHODS)}{PORTED_OPTAX}",
         )
 
     _check_enum(cfg, ("optimizer", "loss_method"), _LOSS_METHODS, casefold=True)
