@@ -12,13 +12,17 @@ background (``same_scipy_fits``):
 
 * ``learned_parameters.csv``: the same columns, each to 1e-9 relative of the
   JAX package's final parameters;
-* ``binary/sigmas_fe.npz`` (the six sigmas of the angular Hessian, dense
-  over the unbatched parameters, on the CPU in float64): to 0.1 relative
-  (``SIGMA_SPREAD_TOL``) here and, slow-marked (the JAX Hessian's second form
-  compiles for a minute), each within ``SPREAD_RATIO`` times the JAX
-  package's own float64 spread: the distance between the sigmas of its two
-  Hessian forms at its fitted parameters (``batch_flat_hessian``'s forward
-  over reverse and ``jax.jacrev`` of the gradient).  ``SIGMA_TOL`` (1e-5,
+* the angular Hessian (dense over the six unbatched parameters, on the CPU in
+  float64) to ``HESSIAN_TOL`` of its largest entry, each package's at its own
+  fitted parameters;
+* ``binary/sigmas_fe.npz`` (the six sigmas of that Hessian): each within
+  ``SPREAD_RATIO`` times the JAX package's own float64 spread of that sigma
+  and at least ``SIGMA_FLOOR``.  The spread is the distance between the
+  sigmas of JAX's two Hessian forms at its fitted parameters
+  (``batch_flat_hessian``'s forward over reverse and ``jax.jacrev`` of the
+  gradient); here it is ``JAX_SIGMA_SPREAD``, and, slow-marked (the second
+  form compiles for a minute), it is computed and each sigma held to it
+  directly.  ``SIGMA_TOL`` (1e-5,
   ``tests/test_torch_postprocess.py``) is out of reach on this deck in either
   package: the Hessian's condition number is ~2e6, and its (lam, lam) entry, a
   sum that cancels, comes out of float64 uncertain at ~1e-5 of itself (JAX's
@@ -62,13 +66,20 @@ from tsadar_tpu_torch.inverse.optimizers import optimizer
 from tsadar_tpu_torch.utils import mlflow_shim as mlflow
 from tsadar_tpu_torch.utils.checkpoint import latest_epoch
 from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
+from tsadar_tpu_torch.utils.process import postprocess
 
 from .test_torch_data_pipeline import same_scipy_fits
 from .torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CONFIGS = Path(__file__).resolve().parent / "configs"
-SPREAD_RATIO = 4.0  # the port's sigmas against JAX's, in units of JAX's own spread (measured 2.6)
-SIGMA_SPREAD_TOL = 0.1  # relative: the port's sigmas against JAX's on this deck (measured 3.5e-2; JAX's two forms 1.4e-2)
+SPREAD_RATIO = 4.0  # the port's sigmas against JAX's, in units of JAX's own spread (measured 2.5-2.6)
+HESSIAN_TOL = 1e-7  # of the largest entry: the port's angular Hessian against JAX's (measured 4.9e-8)
+SIGMA_FLOOR = 1e-4  # relative: the least limit of a sigma
+# each sigma's float64 spread in the JAX package, relative: the distance between the sigmas of its two Hessian forms
+# at its fitted parameters, in the Hessian's order (``postprocess.sigma_names``); computed again, and these values
+# held to it, by test_cli_arts_sigmas_within_the_jax_packages_own_spread
+JAX_SIGMA_SPREAD = {"electron.Te": 1.78e-3, "electron.ne": 1.03e-2, "electron.m": 6.96e-4, "general.amp1": 2.62e-5,
+                    "general.amp2": 2.71e-5, "general.lam": 1.36e-2}
 ACTIVE = ("Te_electron", "ne_electron", "m_electron", "amp1_general", "amp2_general", "lam_general")
 
 
@@ -116,10 +127,23 @@ def _jax_sigma_spread(stash):
 def _both_fits(tmp_path, monkeypatch):
     """The small deck through the port's command line and the JAX package's ``fitter.fit``, sharing one fit of the
     background: (the port's artifacts, its run record, the JAX run's artifacts, JAX's final parameters, what the
-    JAX postprocess was given)."""
+    JAX postprocess was given with each package's first Hessian under ``"hessians"``)."""
     for name in ("plot_data_angular", "plot_ang_lineouts", "plot_dist"):  # figures only: they cost seconds here
         monkeypatch.setattr(plotters, name, lambda *a, **k: {})
-    stash, process = {}, jpp.process_angular_data
+    stash, process = {"hessians": {}}, jpp.process_angular_data
+
+    def keeping(module, key):
+        hessian = module.batch_flat_hessian
+
+        def first_kept(*args, **kwargs):
+            h = hessian(*args, **kwargs)
+            stash["hessians"].setdefault(key, np.asarray(h))
+            return h
+
+        monkeypatch.setattr(module, "batch_flat_hessian", first_kept)
+
+    keeping(postprocess, "port")
+    keeping(jpp, "jax")
 
     def keep(config, indices, all_data, all_axes, loss_fn, weights, *rest):  # the JAX fit's parameters, for the spread
         stash.update(config=config, all_data=all_data, loss_fn=loss_fn, weights=weights)
@@ -149,15 +173,24 @@ def _sigmas(*artifact_dirs):
 
 
 def test_cli_arts_fit_matches_the_jax_fitter(tmp_path, monkeypatch):
-    art, meta, jax_art, want, _ = _both_fits(tmp_path, monkeypatch)
+    art, meta, jax_art, want, stash = _both_fits(tmp_path, monkeypatch)
     table = pd.read_csv(art / "csv" / "learned_parameters.csv", index_col=0)
     assert set(ACTIVE) <= set(table.columns) and len(table) == 1
     for k in ACTIVE:
         np.testing.assert_allclose(table[k].to_numpy(), np.asarray(want[k]), rtol=1e-9, err_msg=k)
+    hess, jax_hess = stash["hessians"]["port"], stash["hessians"]["jax"]
+    assert hess.shape == jax_hess.shape == (6, 6)
+    np.testing.assert_allclose(hess, jax_hess, rtol=0, atol=HESSIAN_TOL * np.abs(jax_hess).max())
     sig, jax_sig = _sigmas(art, jax_art)
     assert sig.shape == jax_sig.shape == (1, 6) and np.all(sig != 0)
-    # the float64 spread of either package's Hessian on this deck (module docstring): measured 3.5e-2 at most
-    np.testing.assert_allclose(sig, jax_sig, rtol=SIGMA_SPREAD_TOL)
+    deck = merge_configs(*_decks())
+    names = postprocess.sigma_names(deck, port.ThomsonParams.create(deck["parameters"], 1, activate=True, device="cpu",
+                                                                     batch=False))
+    assert names == list(JAX_SIGMA_SPREAD)
+    # each sigma within its share of the float64 spread of either package's Hessian on this deck (module docstring)
+    rtol = np.maximum(SPREAD_RATIO * np.array(list(JAX_SIGMA_SPREAD.values())), SIGMA_FLOOR)
+    miss = np.abs(sig[0] - jax_sig[0]) / np.abs(jax_sig[0])
+    assert np.all(miss <= rtol), dict(zip(names, miss / rtol))
 
     files = {str(p.relative_to(art)) for p in art.rglob("*") if p.is_file()}
     # no EDF file: a DLM EDF gives the final parameters no "fe", and the JAX package plots none
@@ -219,6 +252,56 @@ def test_float32_loses_the_arts_1v_gradients_as_the_jax_packages_does():
     assert jax_miss[lam] > 5.0 and port_miss[lam] > 5.0  # float32 loses lam's gradient in both
 
 
+def _real_2v_deck(lr, epochs):
+    """The ARTS 2V deck's 128 x 128 pointwise EDF (``bench_arts.py``'s: ``init_m`` 2.5, ``learn_log``) on the ARTS 1V
+    deck's real data (shot 94475, background slice 94477): rmsprop at ``lr``, as ``chip_smoke.py``'s
+    ``arts_2v_real_fit`` runs it."""
+    cfg = merge_configs(*[yaml.safe_load((CONFIGS / n).read_text()) for n in ("arts2v_test_defaults.yaml", "arts2d_test_inputs.yaml")])
+    cfg["parameters"]["electron"]["fe"].update(type="arbitrary", dim=2, nvx=128, params={"init_m": 2.5, "learn_log": True})
+    cfg["data"].update(shotnum=94475, background={"type": "Fit", "slice": 94477}, launch_data_visualizer=False)
+    cfg["optimizer"].update(num_epochs=epochs, learning_rate=lr, save_state=False)
+    return cfg
+
+
+@pytest.mark.parametrize("lr, epochs", [(1e-2, 8), (1e-3, 6)])
+def test_real_2v_fit_follows_the_jax_loop_epoch_by_epoch(lr, epochs, tmp_path, monkeypatch):
+    """``angular_optax`` of ``_real_2v_deck`` in both packages on the CPU in float64, each projecting by NUDFT as on an
+    accelerator, from one fit of the background: every counted epoch's loss to 1e-5 relative (measured 1.9e-7).  At
+    the deck's lr, 1e-2, the loss rises from the first step in both (0.879 -> 1.87 in 7 epochs, then the early
+    stop); at 1e-3 it falls in both, which is why ``chip_smoke.py`` fits this image at 1e-3."""
+    from tsadar_tpu.core.physics.form_factor import FormFactor as JaxFormFactor
+    from tsadar_tpu.inverse import loops as jax_loops
+    from tsadar_tpu_torch.core.physics.form_factor import FormFactor
+
+    for cls in (JaxFormFactor, FormFactor):
+        monkeypatch.setattr(cls, "_project_all_fourier", lambda self, vx, DF, betas: self._project_all_nudft(vx, DF))
+    jax_losses, log_metrics = [], jax_loops.mlflow.log_metrics
+
+    def keep(metrics, *args, **kwargs):
+        if "epoch loss" in metrics:
+            jax_losses.append(float(metrics["epoch loss"]))
+        return log_metrics(metrics, *args, **kwargs)
+
+    monkeypatch.setattr(jax_loops.mlflow, "log_metrics", keep)
+    monkeypatch.chdir(tmp_path)
+    with same_scipy_fits():
+        jax_cfg = jax_fitter._lineout_selection(_real_2v_deck(lr, epochs))
+        jax_data, jax_sa, _ = jax_fitter.load_data_for_fitting(jax_cfg)
+        cfg = fitter._lineout_selection(_real_2v_deck(lr, epochs))
+        all_data, sa, _ = fitter.load_data_for_fitting(cfg)
+    np.testing.assert_array_equal(all_data["e_data"], jax_data["e_data"])
+    record = {}
+    port.angular_optax(cfg, all_data, sa, device="cpu", dtype=torch.float64, record=record)
+    jax_loops.angular_optax(jax_cfg, jax_data, jax_sa)
+    losses = record["losses"]
+    assert len(losses) == len(jax_losses) >= 6
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-5)
+    if lr > 5e-3:
+        assert losses[-1] > 2 * losses[0] and jax_losses[-1] > 2 * jax_losses[0]
+    else:
+        assert losses[-1] < losses[0] and jax_losses[-1] < jax_losses[0]
+
+
 @pytest.mark.slow
 def test_cli_arts_sigmas_within_the_jax_packages_own_spread(tmp_path, monkeypatch):
     """The sigmas of ``test_cli_arts_fit_matches_the_jax_fitter`` against the JAX package's own float64 spread:
@@ -227,6 +310,8 @@ def test_cli_arts_sigmas_within_the_jax_packages_own_spread(tmp_path, monkeypatc
     sig, jax_sig = _sigmas(art, jax_art)
     spread = _jax_sigma_spread(stash)
     assert np.all(spread < 0.05 * np.abs(jax_sig))  # JAX's own forms agree to a few percent at worst
+    # the spreads that the tier-1 test takes as given (JAX_SIGMA_SPREAD, three digits)
+    np.testing.assert_allclose(spread[0] / np.abs(jax_sig[0]), list(JAX_SIGMA_SPREAD.values()), rtol=5e-3)
     assert np.all(np.abs(sig - jax_sig) <= SPREAD_RATIO * spread), (np.abs(sig - jax_sig) / spread)
 
 

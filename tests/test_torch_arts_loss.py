@@ -31,6 +31,7 @@ from tsadar_tpu.inverse.loss import LossFunction as JaxLoss
 import tsadar_tpu_torch as port
 from tsadar_tpu_torch.convert import leaves_by_path, thomson_params_from_partitions
 from tsadar_tpu_torch.inverse import loops, optimizers
+from tsadar_tpu_torch.utils.process import batches
 from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
 
 HERE = os.path.dirname(__file__)
@@ -67,7 +68,7 @@ def jax_side():
     cfg, sas = _config()
     lo, hi = int(cfg["data"]["lineouts"]["start"] / UNIT), int(cfg["data"]["lineouts"]["end"] / UNIT)
     cfg["data"]["lineouts"].update(start=lo, end=hi)
-    batch = loops._angular_batch(_all_data(0), slice(lo, hi))
+    batch = batches.angular_batch(_all_data(0), slice(lo, hi))
     loss_fn = JaxLoss(cfg, sas, batch)
     jp = JaxParams.create(cfg["parameters"], num_params=1, batch=False, activate=True)
     diff, static = partition(jp, jax_filter_spec(cfg["parameters"], jp))

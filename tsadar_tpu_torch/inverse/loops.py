@@ -33,7 +33,7 @@ import torch
 from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
 from ..utils import mlflow_shim as mlflow
 from ..utils.console import log_info
-from ..utils.process.postprocess import _numpy
+from ..utils.process.batches import angular_batch, to_numpy
 from . import lbfgs
 from .loss import LossFunction, ravel, unravel_into
 from .optimizers import optimizer
@@ -264,19 +264,6 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
     return all_weights, overall_loss, loss_fn
 
 
-def _angular_batch(all_data, sl, rot=False):
-    """ARTS batch for the resolution-unit window ``sl``: the electron channels are windowed (from the second
-    shot's ``*_rot`` channels with ``rot``), the ion channels stay whole except the noise window."""
-    return {
-        "e_data": all_data["e_data_rot" if rot else "e_data"][sl, :],
-        "e_amps": all_data["e_amps_rot" if rot else "e_amps"][sl, :],
-        "noise_e": all_data["noiseE_rot" if rot else "noiseE"][sl, :],
-        "i_data": all_data["i_data"],
-        "i_amps": all_data["i_amps"],
-        "noise_i": all_data["noiseI"][sl, :],
-    }
-
-
 def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     """ARTS fit of one image, or of two multiplexed ones, with early stopping: ``(best parameters, last counted
     epoch's loss, loss function)``.
@@ -294,9 +281,9 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
     lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
     sl = slice(lineouts["start"], lineouts["end"])
-    batch1 = _angular_batch(all_data, sl)
+    batch1 = angular_batch(all_data, sl)
     multiplexed = isinstance(config["data"].get("shotnum"), list)
-    batch = {"b1": batch1, "b2": _angular_batch(all_data, sl, rot=True)} if multiplexed else batch1
+    batch = {"b1": batch1, "b2": angular_batch(all_data, sl, rot=True)} if multiplexed else batch1
     loss_fn = LossFunction(config, sa, batch1, device=device, dtype=dtype)
     mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t_enter, 2)})
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
@@ -311,7 +298,7 @@ def _unnormed_snapshot(config, ts_params, best):
     with torch.no_grad():
         for p, b in zip(get_filter_spec(config["parameters"], snap).values(), best):
             p.copy_(b)
-    return _numpy(snap.get_unnormed_params())
+    return to_numpy(snap.get_unnormed_params())
 
 
 def _log_state_weights(state_weights):

@@ -66,6 +66,7 @@ from .. import artifacts
 from .. import mlflow_shim as mlflow
 from ..config import flatten, unflatten
 from ..console import log_info
+from .batches import angular_batch, to_numpy
 
 
 def _rows(all_data, inds):
@@ -80,17 +81,9 @@ def _rows(all_data, inds):
     }
 
 
-def _numpy(v):
-    if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
-    if isinstance(v, dict):
-        return {k: _numpy(x) for k, x in v.items()}
-    return np.asarray(v)
-
-
 def _assign(dst, inds, val):
     """Place a batch's rows; unloaded species carry placeholder zeros whose shapes do not match the grid."""
-    val = np.atleast_2d(_numpy(val))
+    val = np.atleast_2d(to_numpy(val))
     tgt = dst[inds].shape
     if val.shape == (1, tgt[0]) and tgt[1] != tgt[0]:
         val = val.T
@@ -123,7 +116,7 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
         fitted, num_params = weights.get_fitted_params(config["parameters"])
         for group, values in fitted.items():
             for name, value in values.items():
-                all_params[group].setdefault(name, []).append(_numpy(value))
+                all_params[group].setdefault(name, []).append(to_numpy(value))
     for group in all_params:
         for name in all_params[group]:
             if not angular:
@@ -155,12 +148,10 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
             hessian_s += time.perf_counter() - t0
 
     if angular:
-        from ...inverse.loops import _angular_batch
-
-        batch = _angular_batch(all_data, slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"]))
+        batch = angular_batch(all_data, slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"]))
         t0 = time.perf_counter()
         loss, sqds, ThryE, _, _ = loss_fn.array_loss(fitted_weights[0], batch)
-        fits["ele"], sqdevs["ele"], losses = _numpy(ThryE), _numpy(sqds["ele"]), _numpy(loss)
+        fits["ele"], sqdevs["ele"], losses = to_numpy(ThryE), to_numpy(sqds["ele"]), to_numpy(loss)
         arrayloss_s += time.perf_counter() - t0
         if calc_sigma:
             # a pointwise 2D EDF's nvx^2 weights exceed the budget: skipped, as in the JAX package
@@ -171,7 +162,7 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
             batch = _rows(all_data, inds)
             t0 = time.perf_counter()
             loss, sqds, ThryE, ThryI, _ = loss_fn.array_loss(fitted_weights[i_batch], batch)
-            losses[inds] = _numpy(loss)
+            losses[inds] = to_numpy(loss)
             arrayloss_s += time.perf_counter() - t0
             _assign(sqdevs["ele"], inds, sqds["ele"])
             _assign(sqdevs["ion"], inds, sqds["ion"])
@@ -197,9 +188,9 @@ def _breakdown(fits, breakdown, inds, e_shape, i_shape):
     the raw axes by the batch's lineouts, the instrument-only spectra by row."""
     _, _, ThryE, ThryI, eIRF, iIRF, _, _, lamE_raw, lamI_raw = breakdown
     for feature, comps, irf, shape, axis in (("ele", ThryE, eIRF, e_shape, lamE_raw), ("ion", ThryI, iIRF, i_shape, lamI_raw)):
-        fits[feature].setdefault("spec_comps", {})[tuple(inds)] = _numpy(comps)
+        fits[feature].setdefault("spec_comps", {})[tuple(inds)] = to_numpy(comps)
         _assign(fits[feature].setdefault("IRF", np.zeros(shape)), inds, irf)
-        fits[feature].setdefault("detailed_axis", {})[tuple(inds)] = np.squeeze(_numpy(axis))
+        fits[feature].setdefault("detailed_axis", {})[tuple(inds)] = np.squeeze(to_numpy(axis))
 
 
 def _lineout_slice(tree, sl, B):
@@ -222,7 +213,7 @@ def batch_flat_hessian(config, loss_fn, weights, batch, max_params=None, force_d
     and P exceeds it.
     """
     weights64 = copy.deepcopy(weights).to(device="cpu", dtype=torch.float64)
-    batch64 = {k: np.asarray(_numpy(v), dtype=np.float64) for k, v in batch.items()}
+    batch64 = {k: np.asarray(to_numpy(v), dtype=np.float64) for k, v in batch.items()}
     trainable = get_filter_spec(config["parameters"], weights64)
     leaves = [trainable[k] for k in ravel_order(trainable)]
     P = sum(p.numel() for p in leaves)
@@ -289,7 +280,7 @@ def refit_bad_fits(config, sa, batch_indices, all_data, loss_fn, fitted_weights,
             for name, v in values.items():
                 if name in ("f", "fe", "flm"):
                     continue
-                arr = _numpy(v).reshape(-1)
+                arr = to_numpy(v).reshape(-1)
                 val = {"val": float(arr[j] if arr.size > 1 else arr[0])}
                 if name == "m":
                     prev_vals[group]["fe"] = {"params": {"m": val}}
@@ -301,7 +292,7 @@ def refit_bad_fits(config, sa, batch_indices, all_data, loss_fn, fitted_weights,
 
         new_weights, _, refit_loss_fn = loops.one_d_loop(temp_cfg, all_data, sa, np.array([i]), 1, device=dev, dtype=dtype,
                                                          record=record.setdefault("refit_scipy", {}) if record is not None else None)
-        loss = float(_numpy(refit_loss_fn.array_loss(new_weights[0], _rows(all_data, np.array([i])))[0]).sum())
+        loss = float(to_numpy(refit_loss_fn.array_loss(new_weights[0], _rows(all_data, np.array([i])))[0]).sum())
         ib, slot = i // bs, i % bs
         written = loss < losses_init[i]
         if written:
