@@ -81,6 +81,19 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    budget, the layout step, K7 and K8 once a step) and the multiplexed two-shot
    fit of shots 94475 and 94477 (``arts_multiplex``: loss and gradient against
    the CPU float64 path, 40 adam steps, the chi kernels twice a step);
+   Then the rest of the 2V physics and of the library surface: the ARTS 2V deck at
+   full width with the rotate projection (``arts_2v_rotate``: its projections
+   against the NUDFT ones, the forward, loss and gradient against the CPU
+   float64 rotate path, 20 adam steps; the layout step, K7 and K8), in exact
+   mode (``arts_2v_exact``: the chi values at 2048 of the deck's points against
+   the CPU float64 exact mode, one forward and one ``value_and_grad`` at
+   246 784 points with their seconds and peak memory, the gap to the table mode,
+   loss and gradient on a cut wavelength axis against the CPU float64 exact
+   mode; no kernel), with the spherical-harmonic EDF at ``Nl: 2``
+   (``arts_sph_harmonics_l2``), the angular breakdown of the 2V deck and of the
+   ARTS 1V deck's real window (``arts_breakdown``), the optax optimizers ported
+   last on the ARTS 1V real-data fit (``arts_optimizers``) and
+   ``python -m tsadar_tpu_torch.run_bo`` in a child process (``run_bo``);
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -919,16 +932,19 @@ def arts_batch(cfg):
             "noise_e": np.array([0.0]), "noise_i": np.array([0.0])}
 
 
-def arts_models(cfg, sas, device, dtype=None):
-    """(diagnostic, unbatched parameters) of the ARTS deck.  The port projects by the exact NUDFT on
-    the card and by the fft2 slice on the CPU, as the JAX package does by backend; the CPU reference
-    here is given the card's projection, so that the two devices compute the same function."""
+def arts_models(cfg, sas, device, dtype=None, mode_2v="table", projection="fourier"):
+    """(diagnostic, unbatched parameters) of the ARTS deck, a 2V deck's form factor in ``mode_2v`` with
+    ``projection``.  The port projects by the exact NUDFT on the card and by the fft2 slice on the CPU,
+    as the JAX package does by backend; the CPU reference here is given the card's projection, so that
+    the two devices compute the same function."""
     from tsadar_tpu_torch import ThomsonParams, ThomsonScatteringDiagnostic
 
-    diag = ThomsonScatteringDiagnostic(cfg, sas, device=device, dtype=dtype)
-    if diag.device.type == "cpu" and diag.model.dim == 2:
+    diag = ThomsonScatteringDiagnostic(cfg, sas, device=device, dtype=dtype, mode_2v=mode_2v)
+    if diag.model.dim == 2:
         ff = diag.model.electron_form_factor
-        ff._project_all_fourier = lambda vx, DF, betas: ff._project_all_nudft(vx, DF)
+        ff.projection = projection
+        if diag.device.type == "cpu" and projection == "fourier":
+            ff._project_all_fourier = lambda vx, DF, betas: ff._project_all_nudft(vx, DF)
     return diag, ThomsonParams.create(cfg["parameters"], 1, activate=True, device=device, dtype=dtype, batch=False)
 
 
@@ -1634,7 +1650,8 @@ def cpu_nudft(loss_fn):
     return loss_fn
 
 
-def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=(), wrappers=None, **about):
+def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=(), wrappers=None, mode_2v="table",
+                         projection="fourier", **about):
     """Loss and gradient of ``batch`` at the deck's start values: the card (float32, kernels) against the port's CPU
     plain path in float64, the loss to LOSS_TOL and each gradient to GRAD_TOL of its largest entry.  ``batch`` is a
     1D deck's lineouts (``lineouts_of``), an angular deck's window or its ``{"b1", "b2"}`` windows; an angular deck's
@@ -1645,8 +1662,8 @@ def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=
     miss: within GRAD_F32_RATIO times the CPU float32 plain path's miss, under GRAD_ZERO_MISS (nearer float64 than
     zeros are), and within F32_TWIN_GRAD_TOL of that path's largest entry of the path itself, which computes the
     card's float32 function.  A gradient named in ``lost_to_float32`` that float32 misses by GRAD_ZERO_MISS or more
-    is held to the float32 path alone.  ``about`` goes into the printed line.  Returns the card's launches
-    (``wrappers``' counts)."""
+    is held to the float32 path alone.  ``mode_2v`` and ``projection`` set a 2V deck's form factor on every
+    device.  ``about`` goes into the printed line.  Returns the card's launches (``wrappers``' counts)."""
     import torch
 
     from tsadar_tpu_torch import LossFunction, ThomsonParams
@@ -1656,7 +1673,8 @@ def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=
     results = {}
     runs = (("f64", "cpu", None), ("card", "cuda", None)) + ((("f32", "cpu", torch.float32),) if f32_rule else ())
     for name, device, dtype in runs:
-        loss_fn = cpu_nudft(LossFunction(cfg, sa, batch.get("b1", batch), device=device, dtype=dtype))
+        loss_fn = cpu_nudft(LossFunction(cfg, sa, batch.get("b1", batch), device=device, dtype=dtype, mode_2v=mode_2v))
+        loss_fn.ts_diag.model.electron_form_factor.projection = projection
         params = ThomsonParams.create(cfg["parameters"], n, activate=True, device=device, dtype=loss_fn.ts_diag.dtype,
                                       batch=not angular)
         read_and_zero(wrappers or {})
@@ -2254,8 +2272,9 @@ LAUNCH_MARK = "chip_smoke launches:"
 CLI_CHILD = f"""
 import importlib, json, runpy, sys
 names = json.loads(sys.argv.pop(1))
+module = sys.argv.pop(1)
 try:
-    runpy.run_module("tsadar_tpu_torch", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
     counts = {{k: getattr(importlib.import_module(m), f).launches for k, (m, f) in names.items()}}
     print("{LAUNCH_MARK}", json.dumps(counts), file=sys.stderr)
@@ -2298,7 +2317,7 @@ def cli_forward_subprocess(wrappers, smi):
     with tracker_root() as tmp:
         env = dict(os.environ)
         t0 = time.perf_counter()
-        out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "--cfg", "configs/1d", "--mode", "forward"],
+        out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "tsadar_tpu_torch", "--cfg", "configs/1d", "--mode", "forward"],
                              cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t0
         marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
@@ -2620,7 +2639,7 @@ def resume_from(tmp, ckpt, latest, wrappers):
     names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
     runs = tmp / "cli_runs"
     t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "--cfg", str(deck), "--mode", "fit"], cwd=ROOT,
+    out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "tsadar_tpu_torch", "--cfg", str(deck), "--mode", "fit"], cwd=ROOT,
                          env=dict(os.environ, TSADAR_RUNS_DIR=str(runs)), capture_output=True, text=True, timeout=600)
     seconds = time.perf_counter() - t0
     marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
@@ -2851,6 +2870,440 @@ def arts_multiplex(wrappers, smi, single_ms_per_step):
 
 # (source, the TPU kernel it replaces, which of the repo's ten TPU kernels); K9's transposed mode and
 # K10's table cotangent have no TPU kernel of their own: they stand beside the kernel they belong to
+
+# ----------------------------------------------------------------------------------------- the twelfth slice's paths
+
+ROTATE_PROJ_TOL = 5e-4  # of the projections' scale: tests/test_physics/test_form_factor.py::test_nudft_projection_matches_rotation
+ROTATE_FIT_STEPS = 20
+EXACT_SAMPLE = 2048  # the deck's own points at which the card's exact chi values meet the CPU float64 ones
+EXACT_CHI_TOL = 1e-3  # of each chi output's largest entry over those points (or 2x the CPU float32 miss, where larger)
+CHI_NAMES = ("fe_vphi", "chiEI", "chiERrat")
+# tests/test_physics/test_form_factor.py::test_2v_table_matches_exact's bound on the two modes' gap (its
+# bi-Maxwellian, nv 64): on this deck the gap exceeds it at the resonance points in float64, in both packages
+# (ROADMAP.md §3), so the full width reports it, and the cut axis holds the card's gap to the CPU float64 one
+EXACT_TABLE_RTOL, EXACT_TABLE_ATOL = 2e-2, 2e-3
+# the wavelength axis of the exact mode's loss and gradient check against the CPU float64 exact mode: every one of
+# the deck's 241 x npts points rotates the whole 128 x 128 EDF, and the CPU oracle's forward and recomputed backward
+# would take many minutes at the deck's 1024 wavelengths (246 784 points).  8 wavelengths (1928 points, ~17 s on 8
+# host cores) keep every angle and the EDF; at 2 nm spacing, 556-570 nm, so that the spectral response's 0.9 nm
+# Gaussian keeps a sample within half a spacing of its centre (over the deck's 400-700 nm it has none, and the
+# response's normalization divides zero by zero)
+EXACT_CUT_NPTS, EXACT_CUT_RANGE = 8, [556.0, 570.0]
+SPH_L2_FAMILIES = ("nn", "arbitrary")
+SPH_L2_SEED = 12
+ARTS_OPTIMIZER_EPOCHS = 3
+# what fails on the ARTS 1V deck in the JAX loop too: sm3 on its 0-d leaves, and the two that need the loss value
+FAILING_OPTIMIZERS = ("sm3", "lbfgs", "polyak_sgd")
+NEW_OPTIMIZERS = ("noisy_sgd", "optimistic_adam", "optimistic_adam_v2", "optimistic_gradient_descent", "rprop",
+                  "sign_sgd", "sm3", "adadelta", "adafactor", "adamaxw", "adan", "fromage", "lamb", "lars", "novograd",
+                  "nadamw")
+
+
+def synthetic_window(cfg, target):
+    """The angular loss's batch of the synthetic ARTS deck: the lineout window of ``arts_fit_data`` (``target`` a
+    CPU tensor)."""
+    from tsadar_tpu_torch.utils.process.batches import angular_batch
+
+    lineouts = cfg["data"]["lineouts"]
+    return angular_batch(arts_fit_data(cfg, target), slice(lineouts["start"], lineouts["end"]))
+
+
+def arts_2v_rotate(wrappers, smi):
+    """The ARTS 2V deck at full width (``load_arts_deck``: ``Arbitrary2V`` 128 x 128, 1024 x 241 points,
+    ``num_beta`` 256) with ``projection="rotate"``: the card's 256 rotate projections against its NUDFT ones
+    (ROTATE_PROJ_TOL of their scale); the forward (the layout step and K7 once) against the CPU float64 rotate
+    forward (FWD_TOL of peak); loss and gradient with respect to the 16 384 EDF values against the CPU float64 path
+    (``real_data_grad_check``: K7′, K7, K8 once each); ROTATE_FIT_STEPS adam steps (``_angular_loop_`` at
+    ARTS_FIT_LR, the chi kernels once a step) with a falling loss.  Returns the fit's launches."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.inverse.loops import _angular_loop_
+
+    cfg, sas = load_arts_deck()
+    batch = arts_batch(cfg)
+    diag, params = arts_models(cfg, sas, None, projection="rotate")
+    ff = diag.model.electron_form_factor
+    with torch.no_grad():
+        phys = params()
+        vx, DF = phys["electron"]["v"], phys["electron"]["fe"]
+        rot, nudft = ff._chi_tables(vx, DF)[1], ff._project_all_nudft(vx, DF)
+        proj_err = float((nudft - rot).abs().max() / rot.abs().max())
+        read_and_zero(wrappers)
+        ThryE = diag(params, batch)[0]
+        torch.cuda.synchronize()
+        fwd_launches = read_and_zero(wrappers)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            diag(params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        diag_cpu, params_cpu = arts_models(cfg, sas, "cpu", projection="rotate")
+        ref = diag_cpu(params_cpu, batch)[0]
+        fwd_err = float((ThryE.double().cpu() - ref).abs().max() / ref.abs().max())
+    read_and_zero(wrappers)
+    window = synthetic_window(cfg, ref)
+    grad_launches = real_data_grad_check(cfg, sas, window, "arts_2v_rotate_grad_check", wrappers=wrappers, projection="rotate")
+
+    fit_cfg = copy.deepcopy(cfg)
+    fit_cfg["optimizer"].update(method="adam", learning_rate=ARTS_FIT_LR, num_epochs=ROTATE_FIT_STEPS, chunk_size=10)
+    window = synthetic_window(fit_cfg, ref)
+    loss_fn = LossFunction(fit_cfg, sas, window)
+    loss_fn.ts_diag.model.electron_form_factor.projection = "rotate"
+    start = ThomsonParams.create(fit_cfg["parameters"], 1, activate=True, device=loss_fn.ts_diag.device,
+                                 dtype=loss_fn.ts_diag.dtype, batch=False)
+    record = {}
+    read_and_zero(wrappers)
+    _angular_loop_(fit_cfg, loss_fn, start, window, record=record)
+    torch.cuda.synchronize()
+    fit_launches = read_and_zero(wrappers)
+    losses = record["losses"]
+    steps, step_ms = angular_steps(record)
+    ok = (proj_err <= ROTATE_PROJ_TOL and fwd_err <= FWD_TOL and bool(torch.isfinite(ThryE).all())
+          and fwd_launches == {k: int(k in ARTS_FWD_KERNELS) for k in wrappers}
+          and grad_launches == {k: int(k in ARTS_KERNELS) for k in wrappers}
+          and fit_launches == {k: steps * int(k in ARTS_KERNELS) for k in wrappers}
+          and bool(np.isfinite(losses).all()) and losses[-1] < losses[0])
+    emit({"phase": "arts_2v_rotate", "projections": list(rot.shape), "nudft_vs_rotate_of_scale": proj_err,
+          "proj_tol": ROTATE_PROJ_TOL, "image": list(ThryE.shape), "max_err_of_peak": fwd_err, "tol": FWD_TOL,
+          "forward_ms": statistics.median(times), "forward_times_ms": times, "launches": fwd_launches,
+          "grad_launches": grad_launches, "fit_steps": steps, "step_ms": step_ms, "first_loss": losses[0],
+          "last_loss": losses[-1], "fit_launches": fit_launches, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_2v_rotate: projections {proj_err:.3e}, forward {fwd_err:.3e}, losses "
+                           f"{losses[0]:.4e} -> {losses[-1]:.4e}, launches {fwd_launches} / {grad_launches} / {fit_launches}")
+    return fit_launches
+
+
+def exact_chi_check(ff, ff_cpu, ff_f32, phys, phys_cpu, rng):
+    """The exact mode's ``calc_all_chi_vals`` at EXACT_SAMPLE seeded points of the deck's own (beta, |xi_e|, klde):
+    the card against the CPU float64 form factor on the same (float32) queries, within EXACT_CHI_TOL of each
+    output's largest entry, or (computed only then) twice the CPU float32 form factor's own miss:
+    ({output: (card miss, float32 miss or None)}, within the limits)."""
+    import torch
+
+    f = ff._fields_2v(phys)
+    idx = torch.as_tensor(rng.choice(f["beta"].numel(), EXACT_SAMPLE, replace=False), device=f["beta"].device)
+    queries = [f[k].reshape(-1)[idx] for k in ("beta", "xie_mag", "klde_mag")]
+    card = ff.calc_all_chi_vals(phys["electron"]["v"], phys["electron"]["fe"], *queries)
+    ref = ff_cpu.calc_all_chi_vals(phys_cpu["electron"]["v"], phys_cpu["electron"]["fe"], *[q.double().cpu() for q in queries])
+    misses = {n: float((c.double().cpu() - r).abs().max() / r.abs().max()) for n, c, r in zip(CHI_NAMES, card, ref)}
+    f32 = None
+    if max(misses.values()) > EXACT_CHI_TOL:
+        f32 = ff_f32.calc_all_chi_vals(phys_cpu["electron"]["v"].float(), phys_cpu["electron"]["fe"].float(),
+                                       *[q.float().cpu() for q in queries])
+        f32 = {n: float((w.double() - r).abs().max() / r.abs().max()) for n, w, r in zip(CHI_NAMES, f32, ref)}
+    ok = all(m <= EXACT_CHI_TOL or (f32 is not None and m <= GRAD_F32_RATIO * f32[n]) for n, m in misses.items())
+    return {n: (m, f32[n] if f32 else None) for n, m in misses.items()}, ok
+
+
+def arts_2v_exact(wrappers, smi):
+    """The ARTS 2V deck at full width in ``mode_2v="exact"`` (Q = 246 784 points, each rotating the 128 x 128
+    EDF; plain tensor code, no kernel): the chi values at EXACT_SAMPLE of the deck's points against the CPU float64
+    exact mode (``exact_chi_check``); one forward and one ``value_and_grad`` of the image's loss, timed on the host
+    clock, with ``torch.cuda.max_memory_allocated``; the card's exact ``calc_in_2D`` against its table mode
+    (EXACT_TABLE_RTOL relative, EXACT_TABLE_ATOL of peak); the loss and gradient against the CPU float64 exact mode
+    on the cut wavelength axis EXACT_CUT_NPTS, EXACT_CUT_RANGE (``real_data_grad_check``).  No chi kernel
+    launches."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.core.physics.form_factor import FormFactor
+
+    cfg, sas = load_arts_deck()
+    batch = arts_batch(cfg)
+    diag, params = arts_models(cfg, sas, None, mode_2v="exact")
+    table_diag, _ = arts_models(cfg, sas, None)
+    ff = diag.model.electron_form_factor
+    cpu_diag, params_cpu = arts_models(cfg, sas, "cpu", mode_2v="exact")
+    ff32 = FormFactor(cfg["other"]["lamrangE"], cfg["other"]["npts"], cfg["data"]["ele_lam_shift"], sas, 1, "cpu",
+                      torch.float32, ud_ang=ff.ud_angle, va_ang=ff.va_angle, mode="exact")
+    with torch.no_grad():
+        phys, phys_cpu = params(), params_cpu()
+        chi_misses, chi_ok = exact_chi_check(ff, cpu_diag.model.electron_form_factor, ff32, phys, phys_cpu,
+                                             np.random.default_rng(SEED + 12))
+        read_and_zero(wrappers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ThryE = diag(params, batch)[0]
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        forward_peak = torch.cuda.max_memory_allocated()
+        launches = read_and_zero(wrappers)
+        exact = ff.calc_in_2D(phys)[0]
+        table = table_diag.model.electron_form_factor.calc_in_2D(phys)[0]
+        beyond = (table - exact).abs() > EXACT_TABLE_RTOL * exact.abs() + EXACT_TABLE_ATOL * exact.abs().max()
+        table_miss = float(((table - exact).abs() / exact.abs().max()).max())
+        read_and_zero(wrappers)  # the table mode's K7′ and K7
+    window = synthetic_window(cfg, 0.9 * ThryE.double().cpu())
+    loss_fn = LossFunction(cfg, sas, window, mode_2v="exact")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (value, _), grads = loss_fn.value_and_grad(params, loss_fn.device_batch(window))
+    torch.cuda.synchronize()
+    vg_s = time.perf_counter() - t0
+    vg_peak = torch.cuda.max_memory_allocated()
+    grads_finite = all(bool(torch.isfinite(g).all()) for g in grads.values()) and math.isfinite(float(value))
+    launches_vg = read_and_zero(wrappers)
+
+    cut = copy.deepcopy(cfg)
+    cut["other"]["npts"] = EXACT_CUT_NPTS
+    cut["other"]["CCDsize"] = [cfg["other"]["CCDsize"][0], EXACT_CUT_NPTS]
+    cut["other"]["lamrangE"] = EXACT_CUT_RANGE
+    t0 = time.perf_counter()
+    rows = cut["data"]["lineouts"]["end"] - cut["data"]["lineouts"]["start"]
+    cut_launches = real_data_grad_check(cut, sas, synthetic_window(cut, torch.ones((rows, EXACT_CUT_NPTS))), "arts_2v_exact_grad_check",
+                                        wrappers=wrappers, mode_2v="exact", npts=EXACT_CUT_NPTS, lamrangE=EXACT_CUT_RANGE,
+                                        points=EXACT_CUT_NPTS * len(sas["sa"]))
+    cut_s = time.perf_counter() - t0
+    # the two modes on the cut axis: the card's exact forward against the CPU float64 one, and the card's gap
+    # between the modes against the CPU float64 gap, each within FWD_TOL of the float64 exact spectrum's peak
+    with torch.no_grad():
+        spectra = {}
+        for device in (None, "cpu"):
+            for mode in ("exact", "table"):
+                d, p = arts_models(cut, sas, device, mode_2v=mode)
+                spectra[device, mode] = d.model.electron_form_factor.calc_in_2D(p())[0].double().cpu()
+        read_and_zero(wrappers)
+    peak = float(spectra["cpu", "exact"].abs().max())
+    cut_exact_miss = float((spectra[None, "exact"] - spectra["cpu", "exact"]).abs().max()) / peak
+    gap_card, gap_cpu = (spectra[d, "table"] - spectra[d, "exact"] for d in (None, "cpu"))
+    cut_gap_miss = float((gap_card - gap_cpu).abs().max()) / peak
+    none = {k: 0 for k in wrappers}
+    ok = (chi_ok and cut_exact_miss <= FWD_TOL and cut_gap_miss <= FWD_TOL and grads_finite
+          and bool(torch.isfinite(ThryE).all()) and bool(torch.isfinite(exact).all())
+          and launches == launches_vg == cut_launches == none)
+    emit({"phase": "arts_2v_exact", "points": int(exact.numel()), "image": list(ThryE.shape),
+          "chi_misses_of_max_card_f32": chi_misses, "chi_tol": EXACT_CHI_TOL, "sampled_points": EXACT_SAMPLE,
+          "forward_s": forward_s, "forward_peak_bytes": forward_peak, "value_and_grad_s": vg_s, "value_and_grad_peak_bytes": vg_peak,
+          "loss": float(value), "grads_finite": grads_finite, "exact_vs_table_max_of_peak": table_miss,
+          "points_beyond_the_table_bound": int(beyond.sum()), "table_rtol": EXACT_TABLE_RTOL,
+          "table_atol_of_peak": EXACT_TABLE_ATOL, "cut_exact_vs_f64_of_peak": cut_exact_miss,
+          "cut_table_gap_vs_f64_gap_of_peak": cut_gap_miss, "cut_table_vs_exact_f64_of_peak": float(gap_cpu.abs().max()) / peak,
+          "cut_tol": FWD_TOL, "cut_check_s": cut_s, "launches": launches, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_2v_exact: chi {chi_misses}, cut {cut_exact_miss:.3e} / {cut_gap_miss:.3e}, finite "
+                           f"{grads_finite}, launches {launches} / {launches_vg} / {cut_launches}")
+    return launches_vg
+
+
+def seeded_edf_state(params, seed):
+    """The state of ``params`` with every spherical-harmonic EDF leaf (the order m and each flm module's) moved by
+    a seeded draw of 0.05 standard deviations, as float64 numpy, for both devices to load."""
+    rng = np.random.default_rng(seed)
+    state = {k: v.detach().double().cpu().numpy() for k, v in params.state_dict().items()}
+    for k in sorted(state):
+        if "distribution_functions" in k and ("flm" in k or "normed_m" in k):
+            state[k] = state[k] + 0.05 * rng.standard_normal(state[k].shape)
+    return state
+
+
+def arts_sph_harmonics_l2(wrappers, smi):
+    """The spherical-harmonic EDF at ``Nl: 2`` (five flm modules) on the ARTS 2V deck at full width, for
+    ``flm_type`` ``nn`` and ``arbitrary``, every EDF leaf moved by one seeded draw (``seeded_edf_state``) on both
+    devices: the card's forward (the layout step and K7 once) against the CPU float64 forward (FWD_TOL of peak).
+    Returns the launches of the last family."""
+    import torch
+
+    out = {}
+    for family in SPH_L2_FAMILIES:
+        cfg, sas = load_arts_deck(arbitrary=False)
+        cfg["parameters"]["electron"]["fe"]["params"].update(flm_type=family, Nl=2)
+        batch = arts_batch(cfg)
+        diag, params = arts_models(cfg, sas, None)
+        diag_cpu, params_cpu = arts_models(cfg, sas, "cpu")
+        state = seeded_edf_state(params_cpu, SPH_L2_SEED)
+        params.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        params_cpu.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()})
+        with torch.no_grad():
+            read_and_zero(wrappers)
+            ThryE = diag(params, batch)[0]
+            torch.cuda.synchronize()
+            launches = read_and_zero(wrappers)
+            ref = diag_cpu(params_cpu, batch)[0]
+        err = float((ThryE.double().cpu() - ref).abs().max() / ref.abs().max())
+        n_flm = len(params.electron.distribution_functions.flm)
+        ok = (err <= FWD_TOL and n_flm == 5 and bool(torch.isfinite(ThryE).all())
+              and launches == {k: int(k in ARTS_FWD_KERNELS) for k in wrappers})
+        out[family] = {"flm_modules": n_flm, "max_err_of_peak": err, "launches": launches, "ok": ok}
+        if not ok:
+            emit({"phase": "arts_sph_harmonics_l2", **out, "tol": FWD_TOL, "ok": False})
+            raise RuntimeError(f"arts_sph_harmonics_l2 ({family}): {err:.3e} of peak against {FWD_TOL}, {n_flm} flm, {launches}")
+    emit({"phase": "arts_sph_harmonics_l2", "Nl": 2, "seed": SPH_L2_SEED, **out, "tol": FWD_TOL, "gpu": smi, "ok": True})
+    return launches
+
+
+BREAKDOWN_NAMES = ("modlE", "modlI", "ThryE", "ThryI", "eIRF", "iIRF", "lamAxisE", "lamAxisI", "lamAxisE_raw", "lamAxisI_raw")
+
+
+def breakdown_check(card, f64, f32, tol):
+    """Each breakdown output of the card against the CPU float64 breakdown, within ``tol`` of its peak or, where
+    float32 itself misses (the ARTS 1V deck's narrow resonance), as float32's own miss: within GRAD_F32_RATIO
+    times the CPU float32 breakdown's miss and within F32_TWIN_GRAD_TOL of that breakdown.  The unreduced stacks
+    (ThryE, ThryI) have no instrument response to smooth their resonances, whose float32 values move by tens of
+    percent of peak under another rounding (the card and the CPU float32 path part by 0.29 of peak on the 2V
+    deck's stack, on an H100): they are held to GRAD_F32_RATIO times float32's own miss alone.  eIRF comes
+    from a peak search, which picks another peak where float32 rounding reorders two prominences: its rows that
+    differ from the float64 ones (by more than ``tol`` of peak) may be at most GRAD_F32_RATIO times as many as the
+    CPU float32 breakdown's.  Returns ({output: misses}, all within)."""
+    def rows_off(a, b):
+        d = (a.double().cpu() - b.double()).abs()
+        return int((d.reshape(d.shape[0], -1).amax(dim=1) > tol * float(b.abs().max())).sum()) if d.dim() > 1 else int(bool(d.max() > 0))
+
+    report, ok = {}, True
+    for name, c, r, w in zip(BREAKDOWN_NAMES, card, f64, f32):
+        scale = max(float(r.abs().max()), 1e-300)
+        miss, miss32 = float((c.double().cpu() - r).abs().max()) / scale, float((w.double() - r).abs().max()) / scale
+        twin = float((c.double().cpu() - w.double()).abs().max()) / scale
+        report[name] = {"vs_f64": miss, "f32_vs_f64": miss32, "vs_f32": twin}
+        if name == "eIRF":
+            report[name].update(rows_off_f64=rows_off(c, r), f32_rows_off_f64=rows_off(w, r))
+            ok = ok and report[name]["rows_off_f64"] <= GRAD_F32_RATIO * report[name]["f32_rows_off_f64"]
+        elif name.startswith("Thry"):
+            ok = ok and miss <= max(tol, GRAD_F32_RATIO * miss32)
+        else:
+            ok = ok and (miss <= tol or (miss <= GRAD_F32_RATIO * miss32 and twin <= F32_TWIN_GRAD_TOL))
+    return report, ok
+
+
+def arts_breakdown(wrappers, smi):
+    """``spectrum_breakdown`` of an ``angular_full`` image on the card against the CPU breakdown in float64 and in
+    float32 (``breakdown_check``): the ARTS 2V deck at full width (every device projecting by NUDFT; FWD_TOL of
+    peak; the layout step and K7 once each) and the ARTS 1V deck's real window (shot 94475; K1, K3, K9 once
+    each; float32 limits that deck, and its image is held as float32's own miss).  Returns the 1V breakdown's
+    launches."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.inverse import fitter
+    from tsadar_tpu_torch.utils.config import merge_configs
+    from tsadar_tpu_torch.utils.process.batches import angular_batch
+
+    cfg, sas = load_arts_deck()
+    batch = arts_batch(cfg)
+    out = {}
+    for name, device, dtype in (("card", None, None), ("f64", "cpu", None), ("f32", "cpu", torch.float32)):
+        diag, params = arts_models(cfg, sas, device, dtype)
+        read_and_zero(wrappers)
+        out[name] = diag.spectrum_breakdown(params, batch)
+        if name == "card":
+            torch.cuda.synchronize()
+            launches_2v = read_and_zero(wrappers)
+    report_2v, ok_2v = breakdown_check(out["card"], out["f64"], out["f32"], FWD_TOL)
+
+    cfg1 = fitter._lineout_selection(merge_configs(*arts_1v_decks()))
+    all_data, sa, _ = fitter.load_data_for_fitting(cfg1)
+    window = angular_batch(all_data, angular_window(cfg1))
+    out = {}
+    for name, device, dtype in (("card", None, None), ("f64", "cpu", None), ("f32", "cpu", torch.float32)):
+        loss_fn = LossFunction(cfg1, sa, window, device=device, dtype=dtype)
+        p = ThomsonParams.create(cfg1["parameters"], 1, activate=True, device=loss_fn.ts_diag.device,
+                                 dtype=loss_fn.ts_diag.dtype, batch=False)
+        read_and_zero(wrappers)
+        out[name] = loss_fn.ts_diag.spectrum_breakdown(p, window)
+        if name == "card":
+            torch.cuda.synchronize()
+            launches_1v = read_and_zero(wrappers)
+    report_1v, ok_1v = breakdown_check(out["card"], out["f64"], out["f32"], FWD_TOL)
+    image_vs_f32 = float((out["card"][0].cpu() - out["f32"][0]).abs().max() / out["f64"][0].abs().max())
+    ok = (ok_2v and ok_1v
+          and launches_2v == {k: int(k in ARTS_FWD_KERNELS) for k in wrappers}
+          and launches_1v == {k: int(k in BREAKDOWN_KERNELS) for k in wrappers})
+    emit({"phase": "arts_breakdown", "arts_2v": report_2v, "tol": FWD_TOL, "arts_2v_launches": launches_2v,
+          "arts_1v_window": list(np.shape(window["e_data"])), "arts_1v": report_1v, "arts_1v_image_vs_plain_f32_of_peak":
+          image_vs_f32, "f32_ratio": GRAD_F32_RATIO, "plain_f32_tol": F32_TWIN_GRAD_TOL, "arts_1v_launches": launches_1v,
+          "shapes_1v": [list(np.shape(a)) for a in out["card"]], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_breakdown: 2V {report_2v}, 1V {report_1v} (image {image_vs_f32:.3e}), "
+                           f"launches {launches_2v} / {launches_1v}")
+    return launches_1v
+
+
+def arts_optimizers(wrappers, smi):
+    """Each optimizer this slice ported (NEW_OPTIMIZERS) takes ARTS_OPTIMIZER_EPOCHS epochs of the ARTS 1V real-data
+    fit (shot 94475's window) through ``angular_optax`` on the card: finite losses that change (the parameters moved),
+    finite best parameters, K1-K4, K9 and K9ᵀ once a step.  ``sm3`` fails on this deck's 0-d leaves, in optax too;
+    ``lbfgs`` and ``polyak_sgd`` fail where the JAX loop does.  Returns the launches of all the fits together."""
+    import torch
+
+    from tsadar_tpu_torch import angular_optax
+    from tsadar_tpu_torch.inverse import fitter
+    from tsadar_tpu_torch.utils.config import merge_configs
+
+    base = fitter._lineout_selection(merge_configs(*arts_1v_decks(epochs=ARTS_OPTIMIZER_EPOCHS, calc_sigmas=False)))
+    all_data, sa, _ = fitter.load_data_for_fitting(base)
+    report, failures, total = {}, [], {k: 0 for k in wrappers}
+    read_and_zero(wrappers)
+    for method in NEW_OPTIMIZERS + FAILING_OPTIMIZERS[1:]:
+        cfg = copy.deepcopy(base)
+        cfg["optimizer"].update(method=method, chunk_size=ARTS_OPTIMIZER_EPOCHS)
+        record = {}
+        t0 = time.perf_counter()
+        try:
+            best, _, _ = angular_optax(cfg, all_data, sa, record=record)
+            torch.cuda.synchronize()
+        except (ValueError, TypeError) as e:
+            report[method] = {"raised": f"{type(e).__name__}: {e}"[:200]}
+            if method not in FAILING_OPTIMIZERS:
+                failures.append(method)
+            continue
+        finally:
+            launches = read_and_zero(wrappers)
+            total = {k: total[k] + launches[k] for k in wrappers}
+        losses = record["losses"]
+        finite = bool(np.isfinite(losses).all()) and all(bool(torch.isfinite(p).all()) for p in best.parameters())
+        steps = sum(record["chunk_steps"])
+        moved = len(set(losses)) > 1
+        report[method] = {"losses": losses, "seconds": time.perf_counter() - t0, "launches": launches}
+        if method in FAILING_OPTIMIZERS or not (finite and moved) or launches != {
+                k: steps * int(k in ARTS_1V_KERNELS) for k in wrappers}:
+            failures.append(method)
+    ok = not failures
+    emit({"phase": "arts_optimizers", "epochs": ARTS_OPTIMIZER_EPOCHS, "window": list(np.shape(all_data["e_data"])),
+          "methods": report, "failures": failures, "launches": total, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"arts_optimizers: {failures}: {json.dumps({m: report.get(m) for m in failures}, default=str)[:3000]}")
+    return total
+
+
+def run_bo_subprocess(wrappers, smi):
+    """``python -m tsadar_tpu_torch.run_bo --cfg DIR --init_points 1 --n_iter 1`` in a child process (CLI_CHILD) on
+    the main deck (``tests/configs/time_test_*``, the raw-data visualizer off): rc 0, two tracked runs, each with its
+    decks and the status ``completed``, a finite target printed; K1-K6 and both K9 modes launched in the child.
+    Returns the child's launches."""
+    import os
+
+    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    defaults, inputs = main_deck_pair()
+    inputs.setdefault("data", {})["launch_data_visualizer"] = False
+    with tracker_root() as tmp:
+        cfg_dir = tmp / "bo"
+        write_decks(cfg_dir, defaults, inputs)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "tsadar_tpu_torch.run_bo", "--cfg", str(cfg_dir),
+                              "--init_points", "1", "--n_iter", "1"], cwd=ROOT, env=dict(os.environ), capture_output=True,
+                             text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
+        launches = json.loads(marks[-1][len(LAUNCH_MARK):]) if marks else None
+        runs = sorted(p.parent for p in (tmp / "runs").rglob("run.json"))
+        status = [json.loads((r / "run.json").read_text())["tags"].get("status") for r in runs]
+        decks_logged = all((r / "artifacts" / "defaults.yaml").exists() for r in runs)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{"target"')]
+    best = json.loads(lines[-1]) if lines else None
+    ok = (out.returncode == 0 and best is not None and math.isfinite(best["target"]) and len(runs) == 2
+          and status == ["completed"] * 2 and decks_logged and launches is not None
+          and all(launches[k] > 0 for k in REAL_FIT_KERNELS))
+    emit({"phase": "run_bo", "rc": out.returncode, "wall_seconds": seconds, "best": best, "runs": len(runs),
+          "status": status, "launches": launches, "stderr_tail": out.stderr[-1500:], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"run_bo: rc {out.returncode}, best {best}, runs {len(runs)} {status}, launches {launches}:\n"
+                           f"{out.stderr[-4000:]}")
+    return launches
+
+
 KERNELS = {
     "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84", "K1"),
     "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193", "K2"),
@@ -3002,6 +3455,16 @@ def main():
     arts_1v_real_grad_check(wrappers)
     path_launches["arts_2v_real_fit"], arts_2v_ms = arts_2v_real_fit(wrappers, smi)
     path_launches["arts_multiplex"] = arts_multiplex(wrappers, smi, arts_2v_ms)
+
+    # 4f. this slice's paths: the rest of the 2V physics and of the library surface -- the rotate projection (K7′,
+    # K7, K8) and the exact mode (no kernel) at the ARTS deck's full width, the spherical-harmonic EDF at Nl 2, the
+    # angular breakdown, the optax optimizers ported last on the ARTS 1V real-data fit, and run_bo in a child process
+    path_launches["arts_2v_rotate"] = arts_2v_rotate(wrappers, smi)
+    path_launches["arts_2v_exact"] = arts_2v_exact(wrappers, smi)
+    path_launches["arts_sph_harmonics_l2"] = arts_sph_harmonics_l2(wrappers, smi)
+    path_launches["arts_breakdown"] = arts_breakdown(wrappers, smi)
+    path_launches["arts_optimizers"] = arts_optimizers(wrappers, smi)
+    path_launches["run_bo"] = run_bo_subprocess(wrappers, smi)
 
     with torch.no_grad():
         # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels

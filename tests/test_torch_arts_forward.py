@@ -229,12 +229,28 @@ def test_arts_1v_forward_matches_the_committed_golden():
 
 
 def test_what_the_slice_left_out_raises():
+    """2V point sharding still raises (ROADMAP.md §1 item 8).  What raised here until it was ported runs: the
+    exact mode (``tests/test_torch_exact_mode.py`` holds it to the JAX package) and the plain "angular" spectype,
+    here on the 2V deck (1024 wavelengths, the 1D instrument response's rebin) against the JAX diagnostic to
+    1e-10 of peak."""
     cfg, sas = _config(size=64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+        port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", shard_2v_points=True)
+    sharded = copy.deepcopy(cfg)
+    sharded["other"]["shard_2v_points"] = True
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+        port.LossFunction(sharded, sas, _batch(cfg), device="cpu")
+    assert port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", mode_2v="exact").model.electron_form_factor.mode == "exact"
+
     plain = copy.deepcopy(cfg)
     plain["other"]["extraoptions"]["spectype"] = "angular"
-    with pytest.raises(NotImplementedError, match="angular_full"):
-        port.ThomsonScatteringDiagnostic(plain, sas, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", mode_2v="exact")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", shard_2v_points=True)
+    plain["other"]["npts"] = 1024
+    jp, tp = _params(plain)
+    want = JaxDiagnostic(plain, scattering_angles=sas)(jp, _batch(plain))
+    with torch.no_grad():
+        got = port.ThomsonScatteringDiagnostic(plain, sas, device="cpu")(tp, _batch(plain))
+    assert got[0].shape == (1024,)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and np.isfinite(w).all()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-10 * max(np.abs(w).max(), 1e-300))

@@ -27,6 +27,7 @@ from jax import numpy as jnp
 from tsadar_tpu.core.params import ThomsonParams as JaxParams
 from tsadar_tpu.core.params import combine, partition
 from tsadar_tpu.core.params import get_filter_spec as jax_filter_spec
+from tsadar_tpu.inverse.loops import angular_optax as jax_angular_optax
 from tsadar_tpu.inverse.loss import LossFunction as JaxLoss
 import tsadar_tpu_torch as port
 from tsadar_tpu_torch.convert import leaves_by_path, thomson_params_from_partitions
@@ -196,7 +197,7 @@ def test_what_the_angular_fit_leaves_out_raises():
     """What raised here until it was ported runs: the multiplexed two-shot loop (``{"b1", "b2"}`` batches from the
     ``*_rot`` channels; ``tests/test_torch_multiplex.py`` holds it to the JAX package) and the 2V moment
     penalties (here against the JAX package's on a skewed EDF).  A method outside ``optimizers.METHODS``
-    still raises."""
+    still raises, and the angular ``lbfgs`` fails as the JAX loop does."""
     cfg, sas = _config()
     multiplexed = copy.deepcopy(cfg)
     multiplexed["data"].update(shotnum=[101675, 101676], shot_rot=25.0)
@@ -208,7 +209,11 @@ def test_what_the_angular_fit_leaves_out_raises():
     assert loss_fn.multiplex_ang and len(record["losses"]) == 1 and np.isfinite(last)
     lbfgs = copy.deepcopy(cfg)
     lbfgs["optimizer"]["method"] = "lbfgs"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # optax's lbfgs needs the loss value in update(): the JAX angular loop's update(grad, state) fails, and so
+    # does the port's, with that reason
+    with pytest.raises(ValueError):
+        jax_angular_optax(copy.deepcopy(lbfgs), _all_data(0), sas)
+    with pytest.raises(ValueError, match="lbfgs needs .* update"):
         port.angular_optax(lbfgs, _all_data(0), sas, device="cpu")
     moments = copy.deepcopy(cfg)
     moments["optimizer"]["moment_loss"] = True

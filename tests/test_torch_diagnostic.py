@@ -15,18 +15,21 @@ import os
 
 import jax
 import numpy as np
-import pytest
 import torch
 import yaml
 from jax import numpy as jnp
 
 from tsadar_tpu.core.diagnostic import ThomsonScatteringDiagnostic as JaxDiagnostic
 from tsadar_tpu.core.params import ThomsonParams as JaxParams
+from tsadar_tpu.core.params import combine, partition
+from tsadar_tpu.core.params import get_filter_spec as jax_filter_spec
 from tsadar_tpu.utils.config import merge_configs as jax_merge
 from tsadar_tpu.utils.config import set_forward_ranges as jax_ranges
 from tsadar_tpu.utils.data_handling.calibration import get_scattering_angles as jax_angles
 import tsadar_tpu_torch as port
-from tsadar_tpu_torch.convert import thomson_params_from_jax
+from tsadar_tpu_torch.convert import leaves_by_path, thomson_params_from_jax
+from tsadar_tpu_torch.core.params import get_filter_spec
+from tsadar_tpu_torch.utils.calibration import get_scattering_angles
 from tsadar_tpu_torch.utils.config import merge_configs, set_forward_ranges
 
 HERE = os.path.dirname(__file__)
@@ -109,8 +112,31 @@ def test_1d_forward_with_blue_red_normalization_matches_jax():
 
 
 def test_angular_spectype_is_not_ported_yet():
-    """Spectype "angular" itself is not: ARTS runs as "angular_full" (``tests/test_torch_arts_forward.py``)."""
+    """Spectype "angular" itself, which raised here until it was ported: unbatched, the fused 1V tail with the
+    weights[0] angle sum and the 1D instrument response, no resolution units; the JAX diagnostic's spectra and
+    the gradient of a seeded scalar of them with respect to the trainable leaves: the spectra to 1e-9 of peak,
+    since the unbatched JAX model takes its cubic lookup as a matmul and the port its blocked form (measured
+    1.9e-10; the vmapped temporal deck's 2.7e-15), as for the ARTS 1V deck (``tests/test_torch_arts_forward.py``);
+    each gradient to 1e-8 relative (lam's, which the resonance amplifies, measured 3.9e-9)."""
     cfg = set_forward_ranges(merge_configs(*_decks("1d-")))
     cfg["other"]["extraoptions"]["spectype"] = "angular"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.ThomsonScatteringDiagnostic(cfg, {"sa": np.ones(10), "weights": np.ones(10)}, device="cpu")
+    sas = get_scattering_angles(cfg)
+    jp = JaxParams.create(cfg["parameters"], num_params=1, batch=False, activate=True)
+    tp = thomson_params_from_jax(cfg["parameters"], leaves_by_path(jp), activate=True, device="cpu")
+    batch = {"e_amps": np.array([1.0]), "i_amps": np.array([1.0]), "noise_e": np.array([0.0]), "noise_i": np.array([0.0])}
+    want = JaxDiagnostic(cfg, scattering_angles=sas)(jp, batch)
+    diag = port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu")
+    got = diag(tp, batch)
+    assert not diag.batched and got[0].shape == (1024,)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.detach().numpy(), w, rtol=0, atol=1e-9 * max(np.abs(w).max(), 1e-300))
+    cot = np.random.default_rng(0).standard_normal(1024)
+    diff, static = partition(jp, jax_filter_spec(cfg["parameters"], jp))
+    g_ref = leaves_by_path(jax.grad(lambda d: jnp.sum(JaxDiagnostic(cfg, scattering_angles=sas)(combine(d, static), batch)[0] * cot))(diff))
+    trainable = get_filter_spec(cfg["parameters"], tp)
+    grads = torch.autograd.grad(torch.sum(got[0] * torch.tensor(cot)), list(trainable.values()))
+    assert set(trainable) == set(g_ref) and len(trainable) >= 3
+    for path, g in zip(trainable, grads):
+        np.testing.assert_allclose(g.numpy(), g_ref[path], rtol=0, atol=1e-8 * np.abs(g_ref[path]).max(), err_msg=path)

@@ -122,12 +122,12 @@ def test_get_unnormed_and_fitted_params_report_the_harmonics():
 def test_real_spherical_harmonics_match_jax():
     rng = np.random.default_rng(2)
     polar, azim = rng.uniform(-np.pi, np.pi, 50), rng.choice([0.0, np.pi], 50)
-    for m in (0, 1):
-        want = np.asarray(jsph.real_sph_harm(1, m, jnp.asarray(polar), jnp.asarray(azim)))
-        got = psph.real_sph_harm(1, m, torch.tensor(polar), torch.tensor(azim)).numpy()
+    for l, m in ((1, 0), (1, 1), (2, 0), (2, 2)):  # every order is ported: l <= 4 in tests/test_torch_spherical.py
+        want = np.asarray(jsph.real_sph_harm(l, m, jnp.asarray(polar), jnp.asarray(azim)))
+        got = psph.real_sph_harm(l, m, torch.tensor(polar), torch.tensor(azim)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="l = 1"):
-        psph.real_sph_harm(2, 0, torch.tensor(polar), torch.tensor(azim))
+    with pytest.raises(ValueError, match="0 <= m <= l"):
+        psph.real_sph_harm(1, 2, torch.tensor(polar), torch.tensor(azim))
 
 
 def test_interp1d_matches_jnp_interp_with_right_fill():

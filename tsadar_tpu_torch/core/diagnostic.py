@@ -5,13 +5,17 @@ the temporal, imaging and 1d spectypes, where JAX vmaps the spectrum model
 over the lineouts, the batch is the leading dimension of every tensor here.
 For ``angular_full`` (ARTS) the model is unbatched: one image [fine angles, L]
 gets the 2D instrument response and is block-averaged to the detector's
-resolution units.
+resolution units.  The plain ``angular`` spectype is unbatched too, and takes
+the 1D instrument response of one spectrum [L], with no resolution units.
 
 ``spectrum_breakdown`` gives what the postprocess's ``detailed_breakdown``
-plots for a batch of 1V lineouts: the per-component (unreduced) spectra, and
-the instrument response alone, as the fitted spectra's two most prominent
-peaks (``scipy.signal.find_peaks`` on the host) put through the same
+plots: the per-component (unreduced) spectra, and the instrument response
+alone, as the fitted spectra's two most prominent peaks
+(``scipy.signal.find_peaks`` on the host) put through the same
 ``postprocess_theory``.
+
+``mode_2v`` ("table" or "exact") is the 2V form factor's mode
+(``FormFactor``).
 """
 
 import numpy as np
@@ -26,7 +30,8 @@ from .physics.spectrum import SpectrumModel
 
 class ThomsonScatteringDiagnostic(nn.Module):
     """``diag(ts_params, batch) -> (ThryE [B, 1024], ThryI, lamAxisE [B, 1024], lamAxisI)``;
-    for ``angular_full``, ThryE [resolution units in the lineout window, wavelengths] and lamAxisE [wavelengths].
+    for ``angular_full``, ThryE [resolution units in the lineout window, wavelengths] and lamAxisE [wavelengths];
+    for ``angular``, ThryE [1024] and lamAxisE [1024].
 
     Runs on the GPU unless ``device="cpu"`` is given; the working dtype is
     float32 on the card and float64 on the CPU.  The model is differentiable
@@ -39,20 +44,17 @@ class ThomsonScatteringDiagnostic(nn.Module):
 
     def __init__(self, cfg, scattering_angles, device=None, dtype=None, mode_2v="table", shard_2v_points=False):
         super().__init__()
-        if mode_2v != "table":
-            raise NotImplementedError(f"2V mode {mode_2v!r} is not ported yet (ROADMAP.md §1 item 7: ratcen/ratintn)")
         if shard_2v_points:
             raise NotImplementedError("2V point sharding is not ported yet (ROADMAP.md §1 item 8)")
         spectype = cfg["other"]["extraoptions"]["spectype"]
         self.angular = spectype == "angular_full"
-        if "angular" in spectype and not self.angular:
-            raise NotImplementedError(f"spectype {spectype!r} is not ported yet: ARTS runs as 'angular_full' (ROADMAP.md §1 item 7)")
-        if not self.angular and not any(s in spectype for s in ("temporal", "imaging", "1d")):
+        self.batched = "angular" not in spectype
+        if self.batched and not any(s in spectype for s in ("temporal", "imaging", "1d")):
             raise NotImplementedError(f"Unknown spectype: {spectype}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or working_dtype(self.device)
-        self.model = SpectrumModel(cfg, scattering_angles, self.device, self.dtype)
+        self.model = SpectrumModel(cfg, scattering_angles, self.device, self.dtype, mode_2v=mode_2v)
         if self.angular:
             self.sas = {"angAxis": self._tensor(scattering_angles["angAxis"])}
 
@@ -60,7 +62,15 @@ class ThomsonScatteringDiagnostic(nn.Module):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
     def postprocess_theory(self, modlE, modlI, lamAxisE, lamAxisI, amps, TSins):
-        """Instrument broadening, rebin and amplitudes of both features."""
+        """Instrument broadening, rebin and amplitudes of both features; the plain ``angular`` spectype's one
+        spectrum [L] goes through the 1D response as a batch of one."""
+        if self.batched or self.angular:
+            return self._postprocess_theory(modlE, modlI, lamAxisE, lamAxisI, amps, TSins)
+        one = {"general": {k: v[None] for k, v in TSins["general"].items()}}
+        ThryE, ThryI, lamAxisE, lamAxisI = self._postprocess_theory(modlE[None], modlI[None], lamAxisE, lamAxisI, amps, one)
+        return ThryE[0], ThryI[0], lamAxisE, lamAxisI
+
+    def _postprocess_theory(self, modlE, modlI, lamAxisE, lamAxisI, amps, TSins):
         opts = self.cfg["other"]["extraoptions"]
         ThryI = modlI
         if opts["load_ion_spec"]:
@@ -122,20 +132,29 @@ class ThomsonScatteringDiagnostic(nn.Module):
 
     @torch.no_grad()
     def spectrum_breakdown(self, ts_params, batch):
-        """The detailed breakdown of a batch of 1V lineouts: ``(modlE, modlI, ThryE, ThryI, eIRF, iIRF, lamAxisE,
-        lamAxisI, lamAxisE_raw, lamAxisI_raw)``.
+        """The detailed breakdown: ``(modlE, modlI, ThryE, ThryI, eIRF, iIRF, lamAxisE, lamAxisI, lamAxisE_raw,
+        lamAxisI_raw)``.
 
-        modlE/modlI [B, 1024]: the total spectra through the instrument, with
-        the noise; ThryE/ThryI [B, G, L, A]: the unreduced component stacks,
-        scaled by each lineout's amplitude over the batch's largest entry;
-        eIRF/iIRF [B, 1024]: the instrument response of the two most
-        prominent peaks of each fitted spectrum, scaled the same way; the
-        axes [B, 1024] after the instrument and [B, L] before it.  A feature
-        that is off gives zeros [B, 1].  The JAX package's
-        ``spectrum_breakdown``, with the peak search on the host.
+        For a batch of 1V lineouts: modlE/modlI [B, 1024], the total spectra
+        through the instrument, with the noise; ThryE/ThryI [B, G, L, A], the
+        unreduced component stacks, scaled by each lineout's amplitude over
+        the batch's largest entry; eIRF/iIRF [B, 1024], the instrument
+        response of the two most prominent peaks of each fitted spectrum,
+        scaled the same way; the axes [B, 1024] after the instrument and
+        [B, L] before it.  A feature that is off gives zeros [B, 1].  For an
+        ``angular_full`` image: modlE the image in the lineout window's
+        resolution units (as the forward gives it), ThryE [units, G, L, A]
+        (the stack times each unit's amplitude, the JAX package's product),
+        eIRF the instrument response of each fine angle's two peaks [fine
+        angles, L] scaled by the largest amplitude, the axes unbatched.  The
+        JAX package's ``spectrum_breakdown``, with the peak search on the
+        host.  Two departures where the JAX package's angular arm fails
+        (ROADMAP.md §3): it hands the unreduced stack to
+        ``reduce_ATS_to_resunit`` (a [G, L, A] stack is not an image), where
+        the port reduces the image, what the 1V arm's modlE is; and it scales
+        eIRF's rows by the resolution units' amplitudes, which do not match
+        them unless there is one, where the port takes the largest.
         """
-        if self.angular:
-            raise NotImplementedError("the angular breakdown is not ported yet (ROADMAP.md §1 item 7)")
         opts = self.cfg["other"]["extraoptions"]
         physical = ts_params()
         amps = {k: self._tensor(batch[k]) for k in ("e_amps", "i_amps")}
@@ -147,14 +166,21 @@ class ThomsonScatteringDiagnostic(nn.Module):
 
         eIRF, iIRF = deltas(modlE, opts["load_ele_spec"]), deltas(modlI, opts["load_ion_spec"])
         eIRF, iIRF, lamE, lamI = self.postprocess_theory(eIRF, iIRF, lamE, lamI, amps, physical)
+        if self.angular:
+            modlE, lamE = self.reduce_ATS_to_resunit(modlE, lamE, physical, batch)
         modlE = modlE + self._tensor(batch["noise_e"])
         modlI = modlI + self._tensor(batch["noise_i"])
         if opts["load_ele_spec"]:
             ThryE = amps["e_amps"].reshape(-1, 1, 1, 1) * ThryE / torch.amax(ThryE)
-            eIRF = amps["e_amps"].reshape(-1, 1) * eIRF / torch.amax(eIRF)
+            # an image's fine-angle rows have no amplitude each: the largest (the JAX package's row-wise product
+            # fails there unless e_amps has one entry, and then it is the same)
+            e_amps = torch.amax(amps["e_amps"]) if self.angular else amps["e_amps"].reshape(-1, 1)
+            eIRF = e_amps * eIRF / torch.amax(eIRF)
         if opts["load_ion_spec"]:
             ThryI = amps["i_amps"].reshape(-1, 1, 1, 1) * ThryI / torch.amax(ThryI)
             iIRF = amps["i_amps"].reshape(-1, 1) * iIRF / torch.amax(iIRF)
+        if not self.batched:
+            return modlE, modlI, ThryE, ThryI, eIRF, iIRF, lamE, lamI, lamE_raw, lamI_raw
         B = modlE.shape[0]
         per_lineout = lambda a: a.expand(B, -1) if a.dim() == 1 else a  # noqa: E731  one axis a lineout, as JAX's
         return (modlE, modlI, ThryE, ThryI, eIRF, iIRF, *map(per_lineout, (lamE, lamI, lamE_raw, lamI_raw)))
@@ -169,8 +195,9 @@ class ThomsonScatteringDiagnostic(nn.Module):
         ThryE, ThryI, lamAxisE, lamAxisI = self.postprocess_theory(
             modlE, modlI, lamAxisE, lamAxisI, amps, physical_params
         )
-        if self.angular:
-            ThryE, lamAxisE = self.reduce_ATS_to_resunit(ThryE, lamAxisE, physical_params, batch)
+        if not self.batched:
+            if self.angular:
+                ThryE, lamAxisE = self.reduce_ATS_to_resunit(ThryE, lamAxisE, physical_params, batch)
             return ThryE + self._tensor(batch["noise_e"]), ThryI + self._tensor(batch["noise_i"]), lamAxisE, lamAxisI
         ThryE = ThryE + self._tensor(batch["noise_e"])
         ThryI = ThryI + self._tensor(batch["noise_i"])

@@ -11,8 +11,8 @@ super-Gaussian of trainable order m on a radial grid and three flm families:
 The angular convention is the JAX package's: polar angle theta = arctan2(vy, vx),
 azimuth phi in {0, pi} by the sign of vy (the even grid has no vy = 0).  Module
 and attribute names follow the JAX pytree, so a JAX leaf path names the same
-tensor here.  Only l = 1 is written out (the decks' ``Nl: 1``, and all that
-Mora-Yahi defines); a higher order raises.
+tensor here.  Any order ``Nl`` of the ``nn`` and ``arbitrary`` families; the
+Mora-Yahi closure defines l = 1 only and raises beyond it, as in JAX.
 """
 
 import math
@@ -21,29 +21,36 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..physics.interp import interp1d
 from .distributions import gamma, inv_act, velocity_grid
 
 
-def interp1d(x, xp, fp, right):
-    """jnp.interp(x, xp, fp, right=right) on an increasing grid xp: fp[0] to the left of it."""
-    n = xp.shape[0]
-    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, n - 1)
-    f = fp[i - 1] + ((x - xp[i - 1]) / (xp[i] - xp[i - 1])) * (fp[i] - fp[i - 1])
-    f = torch.where(x < xp[0], fp[0], f)
-    return torch.where(x > xp[-1], right, f)
-
-
 def real_sph_harm(l, m, polar, azim):
-    """Re Y_lm(polar, azim) with the Condon-Shortley phase, for l = 1.
+    """Re Y_lm(polar, azim) for l >= 0, 0 <= m <= l: orthonormal on the sphere, with the Condon-Shortley phase
+    (``jax.scipy.special.sph_harm_y``'s).
 
-    Y_10 = sqrt(3 / 4 pi) cos(polar); Y_11 = -sqrt(3 / 8 pi) sqrt(1 - cos^2(polar)) e^{i azim}.
+    The normalized associated Legendre function of x = cos(polar), by the
+    stable recurrences P_mm = -sqrt((2k + 1) / 2k) sqrt(1 - x^2) P_(k-1)(k-1)
+    from 1 / sqrt(4 pi), P_(m+1)m = sqrt(2m + 3) x P_mm and
+    P_lm = a_lm (x P_(l-1)m - P_(l-2)m / a_(l-1)m), a_lm = sqrt((4l^2 - 1) / (l^2 - m^2)),
+    in float64, times cos(m azim).  The factor sqrt(1 - x^2), not sin(polar):
+    the grid's polar angle arctan2(vy, vx) runs over [-pi, pi].
     """
-    if l != 1 or m not in (0, 1):
-        raise NotImplementedError(f"real spherical harmonics are written out for l = 1 only, got (l, m) = ({l}, {m}) (ROADMAP.md)")
-    x = torch.cos(polar)
-    if m == 0:
-        return math.sqrt(3.0 / (4.0 * math.pi)) * x
-    return -math.sqrt(3.0 / (8.0 * math.pi)) * torch.sqrt(1.0 - x * x) * torch.cos(azim)
+    if not 0 <= m <= l:
+        raise ValueError(f"real_sph_harm needs 0 <= m <= l, got (l, m) = ({l}, {m})")
+    x = torch.cos(polar.double())
+    pmm = torch.full_like(x, 1.0 / math.sqrt(4.0 * math.pi))
+    y = torch.sqrt(1.0 - x * x)
+    for k in range(1, m + 1):
+        pmm = -math.sqrt((2 * k + 1) / (2 * k)) * y * pmm
+    prev, cur = pmm, pmm
+    if l > m:
+        prev, cur = pmm, math.sqrt(2 * m + 3) * x * pmm
+        for n in range(m + 2, l + 1):
+            a = math.sqrt((4 * n * n - 1) / (n * n - m * m))
+            b = math.sqrt(((n - 1) ** 2 - m * m) / (4 * (n - 1) ** 2 - 1))  # 1 / a_(n-1)m
+            prev, cur = cur, a * (x * cur - b * prev)
+    return (cur * torch.cos(m * azim.double())).to(polar.dtype)
 
 
 def _smoothing_matrix(n, window_size):

@@ -29,9 +29,17 @@ The unreduced 1V ``unreduced_1v`` (the per-component spectra of a breakdown)
 and ``__call__`` (the ARTS 1V deck, unbatched) run the same two lookups and the
 tail's plain form without its reduction.
 
-The 2V path is the JAX package's table mode with the slice-theorem projection;
-its exact mode, its rotate projection and point sharding are not ported yet
-(ROADMAP.md; ``ThomsonScatteringDiagnostic`` raises for them).
+``projection="rotate"`` builds the same tables from per-angle bicubic
+rotations of the EDF (``rotate``, ``_project``), summed over the
+perpendicular axis, on every device, in chunks of ``ROTATE_CHUNK`` angles that
+the backward recomputes.  ``mode="exact"`` skips the tables: every point
+projects the EDF along its own beta (``calc_chi_vals``: the rotation, its
+gradient, ``jnp.interp`` of both at |xi_e| and the pole-aware
+``ratint.pv_integral``), in chunks of ``EXACT_CHUNK`` points whose
+intermediates the backward recomputes (``torch.utils.checkpoint``); plain
+tensor code on every device, as the JAX package's is plain ``jnp``.  The
+gradient reaches Te, ne, lam, Va and ud through each point's rotation angle.
+Point sharding is not ported (ROADMAP.md §1 item 8).
 """
 
 import functools
@@ -42,11 +50,18 @@ import torch
 
 from . import ratint
 from .constants import C, ME_KEV, MP_KEV, RE_CM, PLASMA_FREQ_CONST
-from .interp import chi_bilinear_lookup, chi_tables, cubic_lookup, interp1d_cubic_matmul, lin_lookup, plain_forms_on
+from torch.utils.checkpoint import checkpoint
+
+from .interp import (bicubic_at, bicubic_slopes, chi_bilinear_lookup, chi_tables, cubic_lookup, interp1d,
+                     interp1d_cubic_matmul, lin_lookup, plain_forms_on)
 from .zprime import zprime
 
 # probe angular-frequency numerator: omgL = OMGL_NUM / lam  (lam in nm, omgL in 1/s)
 OMGL_NUM = 2.0 * np.pi * 1.0e7 * C
+ROTATE_CHUNK = 32  # angles a chunk of the rotate projection's tables (the JAX package maps 32 at a time)
+# points a chunk of the exact mode: the JAX package maps 128 at a time; the card takes more, for fewer launches
+# (at nvx 128 a chunk's recomputed backward holds ~40 tensors of 1024 x 128 x 128 floats, ~2.7 GB)
+EXACT_CHUNK = {"cpu": 128, "cuda": 1024}
 
 
 def _nudft_args(betas, n):
@@ -266,11 +281,20 @@ class FormFactor:
         device, dtype: where and in which precision the tables live.
         ud_ang, va_ang: angles of electron drift and ion flow from the x axis [deg] (2V only).
         num_beta: angle-grid resolution of the 2V projection tables.
+        mode: "table" (the projections tabulated on the angle grid, then looked up) or "exact" (each point's
+            own projection, the reference's semantics) (2V only).
+        projection: "fourier" (the slice theorem: NUDFT on the card, fft2 on the CPU) or "rotate" (bicubic
+            rotations of the EDF on every device): how table mode projects (2V only).
     """
 
     def __init__(self, lambda_range, npts, lam_shift, scattering_angles, num_grad_points, device, dtype,
-                 ud_ang=None, va_ang=None, num_beta=256):
+                 ud_ang=None, va_ang=None, num_beta=256, mode="table", projection="fourier"):
+        if mode not in ("table", "exact"):
+            raise ValueError(f"2V mode must be 'table' or 'exact', got {mode!r}")
+        if projection not in ("fourier", "rotate"):
+            raise ValueError(f"2V projection must be 'fourier' or 'rotate', got {projection!r}")
         self.ud_angle, self.va_angle, self.num_beta = ud_ang, va_ang, num_beta
+        self.mode, self.projection = mode, projection
         as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
         lamAxis = np.linspace(lambda_range[0], lambda_range[1], npts)
         self.omgs = as_t(2.0e7 * np.pi * C / lamAxis)  # scattered frequency axis [L], 1/s
@@ -441,6 +465,43 @@ class FormFactor:
         p = torch.fft.ifft(torch.complex(S_r, S_i) * phase[None, :], dim=-1).real * dv  # [B, P]
         return p[:, :n]
 
+    @staticmethod
+    def _rotated(vx, DF, slopes, angle_deg):
+        """The EDF DF [n, n] on the square grid vx, rotated by each angle of ``angle_deg`` [P] (degrees):
+        [P, n, n], out[p, a, b] = DF at R(angle_p) (vx[a], vx[b]), so that index a runs along the angle.
+        ``slopes``: ``bicubic_slopes(vx, vx, DF)``.  Differentiable in DF and in the angles."""
+        beta = angle_deg * (math.pi / 180.0)
+        c, s = torch.cos(beta)[:, None, None], torch.sin(beta)[:, None, None]
+        S, T = vx[:, None], vx[None, :]  # meshgrid(vx, vx, indexing="ij"): S[a, b] = vx[a] along the angle
+        xq, yq = c * S - s * T, s * S + c * T
+        # DF is indexed [vy, vx]: the interpolation's rows are y, its columns x
+        return bicubic_at(yq, xq, vx, vx, DF, *slopes)
+
+    def rotate(self, vx, df, angle_deg):
+        """The 2D EDF df [n, n] rotated so that its new x axis lies along ``angle_deg`` (degrees): out[a, b] is df at
+        R(angle) (vx[a], vx[b]) in the EDF's own frame (bicubic, edge polynomials extrapolated).  The axis
+        convention of the JAX package's ``FormFactor.rotate``, not ``utils.vector_tools.rotate_edf``'s."""
+        angle = torch.as_tensor(angle_deg, dtype=df.dtype, device=df.device).reshape(1)
+        return self._rotated(vx, df, bicubic_slopes(vx, vx, df), angle)[0]
+
+    def _project(self, vx, DF, beta):
+        """The 1D projection [n] of the EDF along the direction ``beta`` (radians): its line integrals over the
+        perpendicular axis, on the vx grid."""
+        return torch.sum(self.rotate(vx, DF, beta * 180.0 / math.pi), dim=1) * (vx[1] - vx[0])
+
+    def _project_many(self, vx, DF, slopes, betas):
+        """``_project`` at every angle of ``betas`` [P]: [P, n]."""
+        return torch.sum(self._rotated(vx, DF, slopes, betas * 180.0 / math.pi), dim=-1) * (vx[1] - vx[0])
+
+    def _project_all_rotate(self, vx, DF, betas):
+        """All projections [len(betas), n] by rotation, ROTATE_CHUNK angles at a time; under autograd each
+        chunk's rotations are recomputed in the backward instead of kept."""
+        slopes = bicubic_slopes(vx, vx, DF)
+        chunks = torch.split(betas, ROTATE_CHUNK)
+        if torch.is_grad_enabled():
+            return torch.cat([checkpoint(self._project_many, vx, DF, slopes, b, use_reentrant=False) for b in chunks])
+        return torch.cat([self._project_many(vx, DF, slopes, b) for b in chunks])
+
     def _chi_tables(self, vx, DF):
         """Projections and chi tables on the dense periodic angle grid.
 
@@ -448,21 +509,59 @@ class FormFactor:
         [nvx - 2] (the midpoints), chiR_tab [B, nvx - 2] = PV int df/(v - p) dv).
         """
         betas = torch.arange(self.num_beta, dtype=DF.dtype, device=DF.device) * (2.0 * math.pi / self.num_beta)
-        # the JAX package's rule by backend, keyed on the tensor's device: the exact
-        # NUDFT on the accelerator, the fft2 slice on the CPU
-        f1d = self._project_all_nudft(vx, DF) if DF.device.type == "cuda" else self._project_all_fourier(vx, DF, betas)
+        if self.projection == "rotate":
+            f1d = self._project_all_rotate(vx, DF, betas)
+        elif DF.device.type == "cuda":
+            # the JAX package's rule by backend, keyed on the tensor's device: the exact NUDFT on the
+            # accelerator, the fft2 slice on the CPU
+            f1d = self._project_all_nudft(vx, DF)
+        else:
+            f1d = self._project_all_fourier(vx, DF, betas)
         df1d = _gradient_last(f1d, vx[1] - vx[0])
         # chi_R on the midpoint-pole grid: one [B, N] @ [N, M] product with the precombined PV matrix
         kernel = _pv_midpoint_kernel(vx.shape[0] - 2, DF.dtype, DF.device)
         pole_grid = 0.5 * (vx[1:-1] + vx[0:-2])
         return betas, f1d, df1d, pole_grid, df1d @ kernel
 
-    def calc_all_chi_vals(self, vx, DF, beta, xie_mag, klde_mag):
-        """(fe at the phase velocity, chiEI, chiERrat) at every evaluation point, table mode.
+    def _chi_vals_exact(self, vx, DF, fx, fy, fxy, beta, xie_mag, klde_mag):
+        """(fe_vphi, chiEI, chiERrat) [P] of P points, each from the EDF's projection along its own beta [P]."""
+        dvx = vx[1] - vx[0]
+        fe_1d = self._project_many(vx, DF, (fx, fy, fxy), beta)  # [P, n]
+        df = _gradient_last(fe_1d, dvx)
+        fe_vphi = interp1d(xie_mag, vx, fe_1d)
+        dfe = interp1d(xie_mag, vx, df)
+        # electron Landau term with the Kramers-Kronig-consistent MINUS sign (see ``_reduced_tail``)
+        chiEI = -math.pi / (klde_mag**2) * dfe
+        chiERrat = -1.0 / (klde_mag**2) * ratint.pv_integral(df, vx, xie_mag)
+        return fe_vphi, chiEI, chiERrat
 
-        One fused lookup of the stacked (f1d | df1d | chi_R) tables:
-        ``interp.chi_bilinear_lookup``, the K7/K8 kernels on the card.
+    def calc_chi_vals(self, vx, DF, inputs):
+        """Exact mode at one point: (fe_vphi, chiEI, chiERrat) from ``inputs`` = (beta, xie_mag, klde_mag), 0-d."""
+        one = [torch.as_tensor(a, dtype=DF.dtype, device=DF.device).reshape(1) for a in inputs]
+        return tuple(o[0] for o in self._chi_vals_exact(vx, DF, *bicubic_slopes(vx, vx, DF), *one))
+
+    def _all_chi_vals_exact(self, vx, DF, beta, xie_mag, klde_mag):
+        """``_chi_vals_exact`` over every point, EXACT_CHUNK at a time; under autograd each chunk is recomputed
+        in the backward (each point rotates the whole EDF: at the ARTS deck's full width the intermediates of
+        all chunks together would take hundreds of GB)."""
+        slopes = bicubic_slopes(vx, vx, DF)
+        size = EXACT_CHUNK.get(DF.device.type, EXACT_CHUNK["cpu"])
+        chunks = zip(*(torch.split(a.reshape(-1), size) for a in (beta, xie_mag, klde_mag)))
+        if torch.is_grad_enabled():
+            outs = [checkpoint(self._chi_vals_exact, vx, DF, *slopes, *c, use_reentrant=False) for c in chunks]
+        else:
+            outs = [self._chi_vals_exact(vx, DF, *slopes, *c) for c in chunks]
+        return tuple(torch.cat(o).reshape(beta.shape) for o in zip(*outs))
+
+    def calc_all_chi_vals(self, vx, DF, beta, xie_mag, klde_mag):
+        """(fe at the phase velocity, chiEI, chiERrat) at every evaluation point.
+
+        Table mode: one fused lookup of the stacked (f1d | df1d | chi_R)
+        tables, ``interp.chi_bilinear_lookup`` (the K7/K8 kernels on the
+        card).  Exact mode: each point's own projection (``calc_chi_vals``).
         """
+        if self.mode == "exact":
+            return self._all_chi_vals_exact(vx, DF, beta, xie_mag, klde_mag)
         _, f1d, df1d, pole_grid, chiR_tab = self._chi_tables(vx, DF)
         Tcat, T4 = chi_tables(f1d, df1d, chiR_tab)  # [B, 3 nvx - 2], and its quad layout on the card
         fe_vphi, dfe, chiR_raw = chi_bilinear_lookup(

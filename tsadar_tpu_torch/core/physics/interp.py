@@ -20,8 +20,14 @@ path, each with a hand-written CUDA kernel in ``tsadar_tpu_torch/ops``:
   name (which leaves it unwired; the port drives it on the chi_R operands).
 
 * ``interp2d_cubic``: bicubic Hermite at scattered points (the multiplexed
-  angular loss's EDF rotation, ``utils.vector_tools.rotate_edf``); plain
-  tensor code, as the JAX package's is.
+  angular loss's EDF rotation, ``utils.vector_tools.rotate_edf``, and the 2V
+  rotate projection, ``FormFactor.rotate``); plain tensor code, as the JAX
+  package's is.  ``bicubic_slopes`` and ``bicubic_at`` are its two halves,
+  for callers that evaluate one table at many query sets.
+
+* ``interp1d``: ``jnp.interp`` (clamped linear interpolation on an increasing
+  grid, the end values held or replaced by ``left``/``right``; the radial
+  profiles of the spherical-harmonic EDF, the exact 2V mode's projections).
 
 ``lin_lookup``, ``cubic_lookup``, ``interp1d_linear_pallas`` and ``chi_bilinear_lookup`` are the
 differentiable lookups of ``tsadar_tpu_torch/ops``: a CPU tensor takes the
@@ -313,6 +319,26 @@ def _hermite_eval(t, h, f0, f1, d0, d1):
     return h00 * f0 + h10 * h * d0 + h01 * f1 + h11 * h * d1
 
 
+def interp1d(x, xp, fp, left=None, right=None):
+    """``jnp.interp(x, xp, fp, left, right)`` on an increasing grid xp [N]: linear inside, fp[0] (or ``left``) to
+    the left of the grid, fp[-1] (or ``right``) to its right.  fp [..., N] with x [...]: one query a row."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, n - 1)
+    if fp.dim() == 1:
+        f0, f1 = fp[i - 1], fp[i]
+    else:
+        f0, f1 = torch.gather(fp, -1, (i - 1)[..., None])[..., 0], torch.gather(fp, -1, i[..., None])[..., 0]
+    f = f0 + ((x - xp[i - 1]) / (xp[i] - xp[i - 1])) * (f1 - f0)
+    f = torch.where(x < xp[0], fp[..., 0] if left is None else left, f)
+    return torch.where(x > xp[-1], fp[..., -1] if right is None else right, f)
+
+
+def bicubic_slopes(x, y, f):
+    """(fx, fy, fxy) [Nx, Ny]: the finite-difference slopes of f along both axes and the cross slope."""
+    fx = _fd_slopes_1d(x, f.movedim(0, -1)).movedim(-1, 0)
+    return fx, _fd_slopes_1d(y, f), _fd_slopes_1d(y, fx)
+
+
 def interp2d_cubic(xq, yq, x, y, f, extrap=True):
     """Bicubic Hermite interpolation of f [Nx, Ny] (f[i, j] = f(x[i], y[j])) at the scattered points (xq, yq).
 
@@ -320,23 +346,23 @@ def interp2d_cubic(xq, yq, x, y, f, extrap=True):
     reaches no kernel): finite-difference slopes along both axes and their
     cross slope, the cell's four corners gathered, Hermite along x, then
     along y.  ``extrap=True`` extrapolates the edge cells' polynomials; a
-    number fills the queries outside the grid instead.  Differentiable in f.
+    number fills the queries outside the grid instead.  Differentiable in f
+    and in the query coordinates.
     """
-    fx = _fd_slopes_1d(x, f.movedim(0, -1)).movedim(-1, 0)
-    fy = _fd_slopes_1d(y, f)
-    fxy = _fd_slopes_1d(y, fx)
+    return bicubic_at(xq, yq, x, y, f, *bicubic_slopes(x, y, f), extrap=extrap)
 
+
+def bicubic_at(xq, yq, x, y, f, fx, fy, fxy, extrap=True):
+    """``interp2d_cubic`` of f with its slopes given (``bicubic_slopes``)."""
     ix, iy = _locate(xq, x), _locate(yq, y)
     hx, hy = x[ix + 1] - x[ix], y[iy + 1] - y[iy]
     tx, ty = (xq - x[ix]) / hx, (yq - y[iy]) / hy
 
-    def corners(a):
-        return a[ix, iy], a[ix + 1, iy], a[ix, iy + 1], a[ix + 1, iy + 1]
-
-    f00, f10, f01, f11 = corners(f)
-    fx00, fx10, fx01, fx11 = corners(fx)
-    fy00, fy10, fy01, fy11 = corners(fy)
-    fxy00, fxy10, fxy01, fxy11 = corners(fxy)
+    # each cell's (f, fx, fy, fxy) at its corners (i, j), (i + 1, j), (i, j + 1), (i + 1, j + 1) side by side: one
+    # gather a query, whose backward is one scatter of 16-wide rows (sixteen gathers would sort the queries 16 times)
+    cells = torch.stack([c for a in (f, fx, fy, fxy) for c in (a[:-1, :-1], a[1:, :-1], a[:-1, 1:], a[1:, 1:])], dim=-1)
+    (f00, f10, f01, f11, fx00, fx10, fx01, fx11, fy00, fy10, fy01, fy11,
+     fxy00, fxy10, fxy01, fxy11) = cells[ix, iy].unbind(-1)
     g0 = _hermite_eval(tx, hx, f00, f10, fx00, fx10)
     g1 = _hermite_eval(tx, hx, f01, f11, fx01, fx11)
     gy0 = _hermite_eval(tx, hx, fy00, fy10, fxy00, fxy10)

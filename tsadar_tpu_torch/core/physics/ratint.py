@@ -17,6 +17,14 @@ K[m + 1] = 0, with a = T/2 - W, b = T/2 + W and c[d] = a(d) + b(d - 1)
 (``pv_coefficients``).  The K9 kernel (``ops.pv_tables``) reads those vectors,
 ~4m floats per table, instead of two dense [N, M] matrices; its plain twin
 builds the dense matrices from the same vectors by the same index rule.
+
+The pole-aware integration of a piecewise-linear f / g (``ratcen``,
+``ratintn``, and ``pv_integral`` for a batch of poles; the counterpart of the
+JAX package's, after Ed Williams' newlip) serves the 2V exact mode: each
+interval is integrated in closed form, by the smooth rational form where
+|gdif| < 1e-4 |gav| and by the real part of the log form near a pole.  Both
+branches are computed with guarded denominators, so that the untaken one
+stays finite and reverse-mode AD NaN-free.
 """
 
 import functools
@@ -115,6 +123,67 @@ def pv_tables(f, coef):
     if plain_forms_on(f, coef):
         return plain(f, coef)
     return PvTables.apply(f, coef)
+
+
+# ------------------------------------------------------------------ pole-aware integration
+
+_BRANCH_RTOL = 1.0e-4  # the far/near split of an interval, as the JAX package (and its reference) sets it
+
+
+def _safe(x, cond):
+    """``x`` where ``cond`` holds, 1 elsewhere (the entries of the branch that is not taken)."""
+    return torch.where(cond, x, torch.ones_like(x))
+
+
+def _ratcen_terms(fav, fdif, gav, gdif):
+    """The real part of the rationally centred integrand of each interval [..., N] from the averages and
+    differences of f and g there."""
+    tmp = fav * gdif - gav * fdif
+    # far from a pole (|gdif| < rtol |gav|): the smooth rational form
+    far = torch.abs(gdif) < _BRANCH_RTOL * torch.abs(gav)
+    gav_safe = _safe(gav, far)
+    rf = fav / gav_safe + tmp * gdif / (12.0 * gav_safe**3)
+    # near a pole: log|gav + gdif/2| - log|gav - gdif/2| (the real part of the complex log; its i pi residue is
+    # dropped, the principal value), floored at the dtype's tiny so that a pole on a node stays finite in AD
+    gdif_safe = _safe(gdif, ~far)
+    tiny = torch.finfo(gav.dtype).tiny
+    ap = torch.clamp(torch.abs(gav + 0.5 * gdif), min=tiny)
+    am = torch.clamp(torch.abs(gav - 0.5 * gdif), min=tiny)
+    rfn = fdif / gdif_safe + tmp * (torch.log(ap) - torch.log(am)) / gdif_safe**2
+    return torch.where(far, rf, rfn)
+
+
+def ratcen(f, g):
+    """Per-interval values [..., N - 2] of f [..., N] over g [N]: the intervals (i, i + 1), i = 0..N - 3 (the last
+    interval dropped, as in the reference)."""
+    fdif = f[..., 1:-1] - f[..., 0:-2]
+    gdif = g[1:-1] - g[0:-2]
+    fav = 0.5 * (f[..., 1:-1] + f[..., 0:-2])
+    gav = 0.5 * (g[1:-1] + g[0:-2])
+    return _ratcen_terms(fav, fdif, gav, gdif)
+
+
+def ratintn(f, g, z):
+    """int f / g dz with f, g piecewise linear on the grid z [N]: f [N] -> a scalar, f [..., N] -> [...]."""
+    squeeze = f.dim() == 1
+    f = f[None] if squeeze else f
+    out = torch.sum(ratcen(f, g) * (z[1:-1] - z[0:-2]), dim=-1)
+    return out[0] if squeeze else out
+
+
+def pv_integral(f, z, poles):
+    """PV int f(z') / (z' - p) dz' for every pole p of ``poles`` (any shape), f piecewise linear on the grid z [N].
+
+    f [N] serves all poles; f [..., N] broadcasts against the poles flattened to [P, 1] (f [P, N] with poles
+    [P]: one pole a row).  One [P, N - 2] evaluation of ``_ratcen_terms``.
+    """
+    p = poles.reshape(-1)[:, None]
+    zmid, zdif = 0.5 * (z[1:-1] + z[0:-2]), z[1:-1] - z[0:-2]
+    fav = 0.5 * (f[..., 1:-1] + f[..., 0:-2])
+    fdif = f[..., 1:-1] - f[..., 0:-2]
+    gav = zmid - p
+    vals = _ratcen_terms(fav, fdif, gav, torch.broadcast_to(zdif, gav.shape))
+    return torch.sum(vals * zdif, dim=-1).reshape(poles.shape)
 
 
 # ------------------------------------------------------------------ float64 oracles

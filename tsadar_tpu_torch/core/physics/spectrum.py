@@ -7,10 +7,17 @@ and its composed branch for one angular (ARTS) image: the unreduced spectrum
 mean over gradient points, and for ``angular_full`` the product with the
 fine-angle weight matrix, which gives the [angle, wavelength] image.
 
+The plain ``angular`` spectype is unbatched like ``angular_full`` but reduces
+as the 1D spectypes do: the fused tail (1V, a batch of one) or the weighted
+angle sum (2V), to one spectrum [L].
+
 ``detailed_spectrum`` gives, beside the reduced spectra, the unreduced stacks
-[B, G, L, A] of both features (``FormFactor.unreduced_1v``), with the iaw
-notch filter's band pressed down by ``FILTER_SUPPRESSION_OD`` in the electron
-stack: what ``ThomsonScatteringDiagnostic.spectrum_breakdown`` plots.
+of both features ([B, G, L, A] of a 1V batch, ``FormFactor.unreduced_1v``;
+[G, L, A] of an angular image, ``FormFactor.__call__`` or ``calc_in_2D``,
+whose electron feature reduces to the [fine angle, wavelength] image), with
+the iaw notch filter's band pressed down by ``FILTER_SUPPRESSION_OD`` in the
+electron stack: what ``ThomsonScatteringDiagnostic.spectrum_breakdown``
+plots.
 
 Parity quirk kept on purpose: the angle weights are ``weights[0]`` of the
 beam's 1-D aperture-weight vector, i.e. ONE scalar that multiplies the plain
@@ -22,18 +29,19 @@ from typing import Dict
 
 import torch
 
-from .form_factor import FormFactor
+from .form_factor import FormFactor, _batch_of_one
 
 PROBE_NOTCH_HALF_WIDTH_NM = 3.0  # iawoff notch about the probe line
 FILTER_SUPPRESSION_OD = 9  # the OD of the filter band in the unreduced electron stack of a breakdown
 
 
 class SpectrumModel:
-    def __init__(self, config: Dict, scattering_angles: Dict, device, dtype):
+    def __init__(self, config: Dict, scattering_angles: Dict, device, dtype, mode_2v="table"):
         self.config = config
         other = config["other"]
         self.dim = config["parameters"]["electron"]["fe"]["dim"]
         self.angular_full = other["extraoptions"]["spectype"] == "angular_full"
+        self.batched = "angular" not in other["extraoptions"]["spectype"]
         grad_cfg = config["parameters"]["general"]
         if grad_cfg["Te_gradient"]["num_grad_points"] != grad_cfg["ne_gradient"]["num_grad_points"]:
             raise ValueError("Number of gradient points for Te and ne must be the same")
@@ -43,7 +51,7 @@ class SpectrumModel:
         self.weight = weights[0]
         # ARTS: the whole [fine angle, angle] weight matrix, for the electron feature's image
         self.weight_matrix = weights if self.angular_full else None
-        angles_2v = {} if self.dim < 2 else dict(ud_ang=grad_cfg["ud"]["angle"], va_ang=grad_cfg["Va"]["angle"])
+        angles_2v = {} if self.dim < 2 else dict(ud_ang=grad_cfg["ud"]["angle"], va_ang=grad_cfg["Va"]["angle"], mode=mode_2v)
 
         def build(lam_range, lam_shift):
             return FormFactor(lam_range, other["npts"], lam_shift, scattering_angles, num_grad_points, device, dtype,
@@ -56,9 +64,12 @@ class SpectrumModel:
         """(reduced spectrum, wavelength axis [L] in nm) of one feature; ``image``: the ARTS
         [fine angle, wavelength] image through the weight matrix instead of the weighted angle sum."""
         if self.dim == 1 and not self.angular_full:
-            reduced, lam_axis = form_factor.reduced_1v(all_params, self.weight)
-            return reduced, lam_axis * 1e7
-        skw, lam_axis = form_factor(all_params) if self.dim == 1 else form_factor.calc_in_2D(all_params)  # [G, L, A]
+            if self.batched:
+                reduced, lam_axis = form_factor.reduced_1v(all_params, self.weight)
+                return reduced, lam_axis * 1e7
+            reduced, lam_axis = form_factor.reduced_1v(_batch_of_one(all_params), self.weight)
+            return reduced[0], lam_axis * 1e7
+        skw, lam_axis = self._unreduced(form_factor, all_params)  # [G, L, A]
         grad_averaged = torch.mean(skw, dim=0)
         if image:
             return torch.matmul(self.weight_matrix, grad_averaged.T), lam_axis * 1e7
@@ -124,31 +135,42 @@ class SpectrumModel:
 
     def detailed_spectrum(self, all_params: Dict):
         """(ele_reduced [B, L], ion_reduced [B, L], ele_stack [B, G, L, A], ion_stack, lam_axis_ele [L],
-        lam_axis_ion [L]) of a batch of 1V lineouts; a feature that is off gives zeros [B, 1] for all three."""
+        lam_axis_ion [L]) of a batch of 1V lineouts; unbatched (an angular image, 1V or 2V) the stacks are
+        [G, L, A] and the reduced electron feature of ``angular_full`` is the image [fine angles, L].  A feature
+        that is off gives zeros [B, 1] ([1] unbatched) for all three."""
         lam_axis_ion, ion_reduced, ion_stack = self.ion_spectrum_detailed(all_params)
         lam_axis_ele, ele_reduced, ele_stack = self.electron_spectrum_detailed(all_params)
         return ele_reduced, ion_reduced, ele_stack, ion_stack, lam_axis_ele, lam_axis_ion
 
+    def _unreduced(self, form_factor, all_params):
+        """The unreduced stack [G, L, A] of unbatched parameters (1V or 2V) and its wavelength axis [L] in cm."""
+        return form_factor(all_params) if self.dim == 1 else form_factor.calc_in_2D(all_params)
+
     def _raw(self, form_factor, all_params):
-        """The unreduced stack [B, G, L, A] of a 1V batch and its wavelength axis [L] in nm."""
-        if self.dim != 1 or self.angular_full:
-            raise NotImplementedError("the detailed spectrum of the angular spectypes is not ported yet (ROADMAP.md §1 item 7)")
-        skw, lam_axis = form_factor.unreduced_1v(all_params)
+        """The unreduced stack ([B, G, L, A] of a 1V batch, [G, L, A] unbatched) and its wavelength axis [L] in nm."""
+        skw, lam_axis = form_factor.unreduced_1v(all_params) if self.batched else self._unreduced(form_factor, all_params)
         return skw, lam_axis * 1e7
+
+    def _angle_sum(self, skw):
+        """The gradient mean and the weighted angle sum of an unreduced stack: [B, L] or [L]."""
+        return torch.sum(torch.mean(skw, dim=-3) * self.weight, dim=-1)
 
     def ion_spectrum_detailed(self, all_params):
         if self.ion_form_factor is None:
             z = self._off(all_params)[0]
             return z, z, z
         skw, lam_axis = self._raw(self.ion_form_factor, all_params)
-        return lam_axis, torch.sum(torch.mean(skw, dim=1) * self.weight, dim=-1), skw
+        return lam_axis, self._angle_sum(skw), skw
 
     def electron_spectrum_detailed(self, all_params):
         if not self.config["other"]["extraoptions"]["load_ele_spec"]:
             z = self._off(all_params)[0]
             return z, z, z
         skw, lam_axis = self._raw(self.electron_form_factor, all_params)
-        reduced = torch.sum(torch.mean(skw, dim=1) * self.weight, dim=-1)
+        if self.angular_full:
+            reduced = torch.matmul(self.weight_matrix, torch.mean(skw, dim=0).T)
+        else:
+            reduced = self._angle_sum(skw)
         reduced = self._probe_notch(reduced, lam_axis, all_params["general"]["lam"])
         band = self._filter_band()
         if band is not None:

@@ -54,8 +54,8 @@ def _masked_reduce(err, mask, reduce_func):
 class LossFunction:
     """Loss of a lineout batch; runs on the GPU unless ``device="cpu"`` is given."""
 
-    def __init__(self, cfg, scattering_angles, dummy_batch, device=None, dtype=None):
-        self.cfg = cfg
+    def __init__(self, cfg, scattering_angles, dummy_batch, device=None, dtype=None, mode_2v="table"):
+        self.cfg, self.mode_2v = cfg, mode_2v
         if cfg["optimizer"]["y_norm"]:
             self.i_norm = float(torch.as_tensor(dummy_batch["i_data"]).max())
             self.e_norm = float(torch.as_tensor(dummy_batch["e_data"]).max())
@@ -63,7 +63,8 @@ class LossFunction:
             self.i_norm = self.e_norm = 1.0
         # the multiplexed two-shot angular fit: the second image's EDF is turned by data.shot_rot
         self.multiplex_ang = isinstance(cfg["data"].get("shotnum"), list)
-        self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype)
+        self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype, mode_2v=mode_2v,
+                                                   shard_2v_points=cfg["other"].get("shard_2v_points", False))
         self.scattering_angles, self._dummy_batch, self._host_f64 = scattering_angles, dummy_batch, None
 
     def host_f64(self):
@@ -71,7 +72,8 @@ class LossFunction:
         if self.ts_diag.device.type == "cpu" and self.ts_diag.dtype == torch.float64:
             return self
         if self._host_f64 is None:
-            self._host_f64 = LossFunction(self.cfg, self.scattering_angles, self._dummy_batch, device="cpu")
+            self._host_f64 = LossFunction(self.cfg, self.scattering_angles, self._dummy_batch, device="cpu",
+                                          mode_2v=self.mode_2v)
         return self._host_f64
 
     def device_batch(self, batch):

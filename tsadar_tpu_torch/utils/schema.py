@@ -10,17 +10,18 @@ Extra keys pass (decks carry facility-specific extras); the keys the code
 dispatches on are held strictly: enum values, numeric types, the order of
 bounds, and the sections each mode needs.
 
-One departure: the JAX package accepts any optimizer name that ``optax``
-has (its ARTS loop takes one by name).  The port cannot import optax: it
-accepts the 1D loops' names and the optax names it has ported
-(``inverse.optimizers.METHODS``); any other name fails with a message that
-lists them (ROADMAP.md §3; the rest are queued under §1 item 7e).
+One departure: the JAX package accepts any callable that ``optax`` has as an
+optimizer name (its ARTS loop takes one by name).  The port cannot import
+optax: it accepts the 1D loops' names and every optimizer of optax's aliases
+(``inverse.optimizers.METHODS``, and ``UNRUNNABLE``, which fail in the loop as
+in the JAX package); any other name fails with a message that lists them
+(ROADMAP.md §3).
 """
 
 import difflib
 import numbers
 
-from ..inverse.optimizers import METHODS
+from ..inverse.optimizers import METHODS, UNRUNNABLE
 
 _NUM = numbers.Real  # YAML ints and floats; bool excluded explicitly below
 _MISSING = object()
@@ -133,7 +134,7 @@ _BACKGROUND_TYPES = ("pixel", "ps", "um", "Shot", "Fit", "auto")
 _LOSS_METHODS = ("l1", "l2", "log-cosh", "poisson")
 _GRAD_METHODS = ("AD", "FD")
 _BUILTIN_METHODS = ("adam", "lbfgs", "l-bfgs-b")
-_ANGULAR_METHODS = METHODS  # the optax optimizers the angular loop takes
+_ANGULAR_METHODS = METHODS + tuple(m for m in UNRUNNABLE if m not in _BUILTIN_METHODS)  # optax's optimizers
 PORTED_OPTAX = f"; the port takes these optax optimizers: {_ANGULAR_METHODS}"  # the message's end, after the JAX package's
 
 
