@@ -123,7 +123,20 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    (adam, ARTS_FIT_STEPS steps; K7 and K8 once per step, every loss finite, the
    last under a quarter of the first); and runs the deck's own
    spherical-harmonic EDF and the ARTS 1V deck forward once each against the
-   CPU float64 path.
+   CPU float64 path;
+9. drives the multi-GPU sharding (``tsadar_tpu_torch.parallel``), each path with the launch counts read in its
+   processes: the whole-shot fit of shot 101675 (128 lineouts, 200 adam steps, no sigmas) through
+   ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m tsadar_tpu_torch --cfg DIR --mode fit``
+   with ``optimizer.parallel: true`` and ``TSADAR_MULTIHOST=1`` (``dist_one_rank_nccl``: an NCCL group of one,
+   collectives called, K1-K6 and both K9 modes 200 times, ``bench_whole_shot.py``'s gates from the run's files,
+   the losses of ``real_data_fit``); then two ranks on the one card under torchrun with gloo named (NCCL refuses
+   two ranks on one device; ``dist_worker``): each fits 64 of the 128 lineouts for 200 steps
+   (``dist_two_ranks_whole_shot``: K1-K6 and both K9 modes 200 times on each rank at 64 rows, the first step's
+   loss and gradient against this process's single-rank card run, the gates on the gathered parameters, the
+   same final loss on both ranks, each rank's ms a step), then splits the ARTS 2V deck's 246 784 chi points
+   (``dist_arts_2v_points``: ``shard_2v_points``, the loss and EDF gradient against the unsharded card run, the
+   layout step, K7 and K8 once a step on each rank at 123 392 queries, 20 adam steps whose loss falls, the same
+   EDF on both ranks at the end).  A rank that fails fails its command and the phase.
 
 It prints one JSON line per phase and check, then the kernel table, then the
 card's name and power limit as ``nvidia-smi`` gives them, and last
@@ -1709,7 +1722,8 @@ def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=
 
 def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
     """``_1d_adam_loop_`` on the 128 real lineouts: FIT_STEPS adam steps at FIT_LR in chunks of 8, K1-K6
-    and both K9 modes once per step, then ``bench_whole_shot.py``'s quality gate.  Returns the launches."""
+    and both K9 modes once per step, then ``bench_whole_shot.py``'s quality gate.  Returns the launches and every
+    step's loss."""
     import torch
 
     from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
@@ -1745,7 +1759,7 @@ def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
     few = 4  # steps under the profiler, from the deck's start values again
     emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, batch), few, ms_per_step,
                      "real_data_fit_profile", "step"))
-    return launches
+    return launches, losses
 
 
 def deck_pair(*parts):
@@ -3304,6 +3318,434 @@ def run_bo_subprocess(wrappers, smi):
     return launches
 
 
+# The multi-GPU sharding (``tsadar_tpu_torch.parallel``): a one-rank NCCL group through torchrun and the command
+# line, then two gloo ranks sharing the one card (NCCL refuses two ranks on one device), each fitting half of the
+# whole shot's lineouts and then splitting the ARTS 2V deck's chi points
+# each step's loss against real_data_fit's loop on the data that the child prepared: the first DIST_EARLY_STEPS to
+# DIST_EARLY_RTOL, every one to DIST_ONE_RANK_LOSS_RTOL.  Two 200-step runs of that loop in one process on the same data
+# give the same losses for 20 steps and then part, as the card's atomics sum in no fixed order: the phase reports the
+# spread between real_data_fit and its own reference run (``card_spread_of_two_runs``)
+DIST_EARLY_STEPS = 20
+DIST_EARLY_RTOL = 1e-5
+DIST_ONE_RANK_LOSS_RTOL = 0.3
+DIST_ARTS_STEPS = 20
+DIST_MARK = "chip_smoke rank:"
+# the child of dist_one_rank_nccl under torchrun: the command line as ``python -m tsadar_tpu_torch`` runs it, with
+# fitter.fit's record kept, init_process_group noted and the data that rank 0 prepared written (pickled all_data and
+# sa), then (on stderr after DIST_MARK) the rank's kernel launches, collectives, backend and the adam loop's losses
+DIST_CLI_CHILD = f"""
+import importlib, json, os, pickle, runpy, sys
+import torch.distributed as dist
+names = json.loads(sys.argv.pop(1))
+module = sys.argv.pop(1)
+prepared_path = sys.argv.pop(1)
+group, init = {{}}, dist.init_process_group
+def traced(*args, **kwargs):
+    init(*args, **kwargs)
+    group.update(backend=dist.get_backend(), world=dist.get_world_size())
+dist.init_process_group = traced
+from tsadar_tpu_torch.inverse import fitter
+from tsadar_tpu_torch.parallel import dist as par
+captured, fit, prepare = {{}}, fitter.fit, fitter.load_data_for_fitting
+fitter.fit = lambda config, device=None, record=None: fit(config, device=device, record=captured)
+def noted_prepare(config):
+    out = prepare(config)
+    with open(prepared_path, "wb") as f:
+        pickle.dump(out[:2], f)
+    return out
+fitter.load_data_for_fitting = noted_prepare
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+finally:
+    counts = {{k: getattr(importlib.import_module(m), f).launches for k, (m, f) in names.items()}}
+    adam = captured.get("adam", {{}})
+    print("{DIST_MARK}", json.dumps({{"rank": int(os.environ.get("RANK", "0")), "launches": counts, "collectives": par.COUNTS,
+          "group": group, "losses": adam.get("losses"), "chunk_seconds": adam.get("chunk_seconds")}}), file=sys.stderr, flush=True)
+"""
+# the ranks of dist_two_ranks_whole_shot and dist_arts_2v_points under torchrun: chip_smoke.dist_worker
+DIST_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.dist_worker(sys.argv[2], sys.argv[3]))
+"""
+
+
+def kernel_wrappers():
+    """{name: the raw kernel wrapper} of every kernel of the port (each counts its launches in ``.launches``)."""
+    from tsadar_tpu_torch.ops import chi_bilinear, cubic_lookup, lin_lookup, pv_tables, spectrum_tail
+
+    return {
+        "lin_lookup_fwd": lin_lookup.lin_lookup_fwd,
+        "lin_lookup_bwd": lin_lookup.lin_lookup_bwd,
+        "cubic_lookup_fwd": cubic_lookup.cubic_lookup_fwd,
+        "cubic_lookup_bwd": cubic_lookup.cubic_lookup_bwd,
+        "spectrum_tail_fwd": spectrum_tail.spectrum_tail_fwd,
+        "spectrum_tail_bwd": spectrum_tail.spectrum_tail_bwd,
+        "chi_bilinear_fwd": chi_bilinear.chi_bilinear_fwd,
+        "chi_bilinear_pack": chi_bilinear.chi_bilinear_pack,
+        "chi_bilinear_bwd": chi_bilinear.chi_bilinear_bwd,
+        "pv_tables_fwd": pv_tables.pv_tables_fwd,
+        "pv_tables_bwd": pv_tables.pv_tables_bwd,
+        "lin_lookup_meta_fwd": lin_lookup.lin_lookup_meta_fwd,
+        "lin_lookup_meta_bwd": lin_lookup.lin_lookup_meta_bwd,
+    }
+
+
+def launch_sizes(wrappers):
+    """Wrap each raw kernel wrapper in its module so that every launch notes the leading size of its first operand
+    (the rows of a 1V kernel, the queries of K7 and K8, the table rows of the layout step): (the wrappers by name,
+    each counting its launches in ``.launches`` as the one it wraps did, {name: [sizes]})."""
+    import importlib
+
+    sizes, noted_wrappers = {k: [] for k in wrappers}, {}
+    for k, fn in wrappers.items():
+        def noted(*args, _fn=fn, _k=k, **kwargs):
+            sizes[_k].append(int(args[0].shape[0]))
+            return _fn(*args, **kwargs)  # which adds one to the module's wrapper, this one
+
+        noted.launches = 0
+        setattr(importlib.import_module(fn.__module__), fn.__name__, noted)
+        noted_wrappers[k] = noted
+    return noted_wrappers, sizes
+
+
+def read_sizes(sizes):
+    """{name: the distinct sizes noted} and the notes emptied."""
+    out = {k: sorted(set(v)) for k, v in sizes.items() if v}
+    for v in sizes.values():
+        v.clear()
+    return out
+
+
+def same_bits(a, b):
+    """Whether two dicts of arrays hold the same keys and, under each, the same bits."""
+    return a.keys() == b.keys() and all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
+    """The whole-shot fit of shot 101675 (``real_data_fit``'s: 128 lineouts, 200 adam steps at 2e-2; no sigmas)
+    through ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m tsadar_tpu_torch --cfg DIR --mode
+    fit`` with ``optimizer.parallel: true`` and ``TSADAR_MULTIHOST=1`` (the hook that starts the process group, here
+    a group of one): rc 0, the group NCCL with one rank, collectives called, K1-K6 and both K9 modes 200 times (the
+    forward kernels once more for the postprocess), ``bench_whole_shot.py``'s gates read from the run's CSV and
+    tracker, and the losses (a world of one is an identity) against ``real_data_fit``'s loop run here on the data
+    that the child prepared (scipy's streak-background fit can end in either of two mirror solutions, so two
+    processes can prepare different data): the first DIST_EARLY_STEPS to DIST_EARLY_RTOL, every one to
+    DIST_ONE_RANK_LOSS_RTOL.  Where the child's data are ``real_data_prepare``'s bits, the reference run and
+    ``real_data_fit`` are two runs of one loop on one input: their largest difference is the card's own spread.
+    Returns the child's launches."""
+    import os
+    import pickle
+
+    from tsadar_tpu_torch import LossFunction
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+
+    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    defaults, inputs = whole_shot_decks()
+    inputs["optimizer"]["parallel"] = True
+    inputs["other"]["calc_sigmas"] = False
+    with tracker_root() as tmp:
+        deck = write_decks(tmp / "dist_one_rank", defaults, inputs)
+        child, prepared = tmp / "dist_cli_child.py", tmp / "prepared.pkl"
+        child.write_text(DIST_CLI_CHILD)
+        env = dict(os.environ, TSADAR_MULTIHOST="1", TSADAR_DIST_TIMEOUT="300",
+                   PYTHONPATH=os.pathsep.join(filter(None, (str(ROOT), os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                              str(child), names, "tsadar_tpu_torch", str(prepared), "--cfg", str(deck), "--mode", "fit"],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        marks = [json.loads(ln[len(DIST_MARK):]) for ln in out.stderr.splitlines() if ln.startswith(DIST_MARK)]
+        rank = marks[-1] if marks else {}
+        runs = [p.parent for p in (tmp / "runs").rglob("run.json")]
+        gates, at, meta = {}, {}, None
+        if out.returncode == 0 and len(runs) == 1:
+            meta = json.loads((runs[0] / "run.json").read_text())
+            table = csv_columns(runs[0] / "artifacts" / "csv" / "learned_parameters.csv")
+            pix = table["lineout pixel"]
+            sel = (pix >= WHOLE_SHOT_WINDOW[0]) & (pix <= WHOLE_SHOT_WINDOW[1])
+            at = {k: table[f"{k}_electron"][sel].tolist() for k in REAL_TRUTH}
+            gates = {**{k: all(abs(v - val) / val <= tol for v in at[k]) for k, (val, tol) in REAL_TRUTH.items()},
+                     "covered": int(sel.sum()) > 0, "rows": len(pix) == N_LINEOUTS,
+                     "final_loss": metric(meta, "overall loss") < REAL_LOSS_CEILING,
+                     "fit_time": metric(meta, "fit_time") < REAL_FIT_SECONDS}
+        child_data = pickle.loads(prepared.read_bytes()) if prepared.exists() else None
+    steps = WHOLE_SHOT_OPTIMIZER["num_epochs"]
+    launches = rank.get("launches")
+    want = {k: (steps + int(k in FORWARD_KERNELS)) * int(k in REAL_FIT_KERNELS) for k in wrappers}
+    ref_losses, same_data, spread = [], None, None
+    if child_data is not None:
+        child_all, child_sa = child_data
+        same_data = same_bits(child_all, real_all) and same_bits(child_sa, real_sa)
+        batch, record = real_batch(child_all), {}
+        fit_cfg = fit_config(real_cfg, N_LINEOUTS, FIT_STEPS)
+        _1d_adam_loop_(fit_cfg, LossFunction(fit_cfg, child_sa, batch), None, batch, record=record)
+        read_and_zero(wrappers)
+        ref_losses = record["losses"]
+        if same_data:
+            spread = float(np.abs(np.asarray(real_losses) / np.asarray(ref_losses) - 1.0).max())
+    losses = rank.get("losses") or []
+    miss = np.abs(np.asarray(losses) / np.asarray(ref_losses) - 1.0) if ref_losses and len(losses) == len(ref_losses) else None
+    loss_miss = float(miss.max()) if miss is not None else math.inf
+    early_miss = float(miss[:DIST_EARLY_STEPS].max()) if miss is not None else math.inf
+    checks = {"rc": out.returncode == 0, "one_run": len(runs) == 1,
+              "nccl": rank.get("group") == {"backend": "nccl", "world": 1},
+              "collectives": (rank.get("collectives") or {}).get("all_reduce", 0) > 0, "launches": launches == want,
+              "quality_ok": bool(gates) and all(gates.values()), "data_written": child_data is not None,
+              "losses": early_miss <= DIST_EARLY_RTOL and loss_miss <= DIST_ONE_RANK_LOSS_RTOL}
+    ok = all(checks.values())
+    emit({"phase": "dist_one_rank_nccl", "command": "python -m torch.distributed.run --standalone --nproc_per_node 1 "
+          "-m tsadar_tpu_torch --cfg DIR --mode fit", "lineouts": N_LINEOUTS, "steps": steps, "checks": checks,
+          "gates": gates, "at_pixels_500_508": at, "truth_and_tol": REAL_TRUTH, "group": rank.get("group"),
+          "collectives": rank.get("collectives"), "first_loss": losses[0] if losses else None,
+          "final_loss": losses[-1] if losses else None, "child_data_same_bits_as_real_data_prepare": same_data,
+          "max_rel_loss_miss_of_reference": loss_miss, "loss_rtol": DIST_ONE_RANK_LOSS_RTOL,
+          "max_rel_loss_miss_first_steps": early_miss, "first_steps": DIST_EARLY_STEPS,
+          "first_steps_rtol": DIST_EARLY_RTOL,
+          "rel_loss_miss_at_steps_0_10_20_50_100_199": ([float(miss[i]) for i in (0, 10, 20, 50, 100, 199) if i < len(miss)]
+                                                         if miss is not None else None),
+          "card_spread_of_two_runs": spread,
+          "fit_time": metric(meta, "fit_time") if meta else None, "ms_per_step": (1e3 * sum(rank["chunk_seconds"]) / steps
+                                                                                 if rank.get("chunk_seconds") else None),
+          "wall_seconds": seconds, "launches": launches, "launches_want": want, "stderr_tail": out.stderr[-1500:],
+          "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"dist_one_rank_nccl: checks {checks}, gates {gates}:\n{out.stderr[-4000:]}")
+    return launches
+
+
+def _first_step(loss_fn, cfg, batch, ranks, n):
+    """The loss and the gradient (gathered: the whole batch's) at the deck's start values, this rank's rows."""
+    from tsadar_tpu_torch import ThomsonParams
+    from tsadar_tpu_torch.parallel import dist as par
+
+    local, _ = par.shard_params(cfg, ThomsonParams.create(cfg["parameters"], n, activate=True), ranks)
+    with loss_fn.sharded(ranks):
+        (value, _), grads = loss_fn.value_and_grad(local, par.shard_batch(batch, ranks))
+    return float(value), {k: par.gather_points(g, ranks, n).double().cpu().numpy() for k, g in grads.items()}
+
+
+def dist_whole_shot_rank(wrappers, sizes, out_dir):
+    """One rank of ``dist_two_ranks_whole_shot``: rank 0 prepares shot 101675's 128 lineouts and hands them over,
+    each rank takes the first step's loss and gradient on its rows and then fits them (``_1d_adam_loop_`` with the
+    ranks: FIT_STEPS adam steps at FIT_LR); its result, and the gradient as ``whole_shot_grads.npz``."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+    from tsadar_tpu_torch.parallel import dist as par
+    from tsadar_tpu_torch.utils.process.prepare import prepare_data
+
+    cfg = load_real_deck(*REAL_PIXELS, N_LINEOUTS)
+    cfg, (all_data, sa, _) = par.broadcast_object((cfg, prepare_data(cfg, cfg["data"]["shotnum"])) if par.rank() == 0 else None)
+    fit_cfg = fit_config(cfg, N_LINEOUTS, FIT_STEPS)
+    fit_cfg["optimizer"]["parallel"] = True
+    batch = real_batch(all_data)
+    loss_fn = LossFunction(fit_cfg, sa, batch)
+    ranks = par.fit_group(fit_cfg)
+    first_loss, first_grads = _first_step(loss_fn, fit_cfg, batch, ranks, N_LINEOUTS)
+    if par.rank() == 0:
+        np.savez(Path(out_dir) / "whole_shot_grads.npz", **{k: v for k, v in first_grads.items()})
+    torch.cuda.synchronize()
+    read_and_zero(wrappers)
+    read_sizes(sizes)
+    record = {}
+    best_loss, best = _1d_adam_loop_(fit_cfg, loss_fn, None, batch, record=record, ranks=ranks)
+    torch.cuda.synchronize()
+    launches, rows = read_and_zero(wrappers), read_sizes(sizes)
+    local, _ = par.shard_params(fit_cfg, best, ranks)
+    with torch.no_grad(), loss_fn.sharded(ranks):
+        row_loss = loss_fn.__loss__(local, par.shard_batch(batch, ranks))[1][2]
+    row_loss = par.gather_points(row_loss, ranks, N_LINEOUTS).double().cpu().numpy()
+    fitted = {k: v.detach().double().cpu().numpy().tolist() for k, v in best.get_unnormed_params()["electron"].items()
+              if k in REAL_TRUTH}
+    return {"rows": ranks.bounds(N_LINEOUTS), "first_loss": first_loss, "launches": launches, "launch_rows": rows,
+            "losses": record["losses"], "best_loss": best_loss, "chunk_seconds": record["chunk_seconds"],
+            "row_loss": row_loss.tolist(), "fitted": fitted, "pixels": list(cfg["data"]["lineouts"]["val"])}
+
+
+def dist_arts_rank(wrappers, sizes, out_dir, target_path):
+    """One rank of ``dist_arts_2v_points``: the ARTS 2V deck at full width with ``shard_2v_points``, the loss and
+    EDF gradient at the deck's start, then DIST_ARTS_STEPS adam steps of ``angular_optax``; its result, and the
+    gradient (rank 0) and final EDF as ``arts_2v_rank{r}.npz``."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams, angular_optax
+    from tsadar_tpu_torch.core.params import get_filter_spec
+    from tsadar_tpu_torch.parallel import dist as par
+    from tsadar_tpu_torch.utils.process.batches import angular_batch
+
+    cfg, sas = load_arts_deck()
+    cfg["other"]["shard_2v_points"] = True
+    cfg["optimizer"].update(method="adam", learning_rate=ARTS_FIT_LR, num_epochs=DIST_ARTS_STEPS, chunk_size=10)
+    all_data = arts_fit_data(cfg, torch.from_numpy(np.load(target_path)["target"]))
+    lineouts = cfg["data"]["lineouts"]
+    batch = angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
+    loss_fn = LossFunction(cfg, sas, batch)
+    params = ThomsonParams.create(cfg["parameters"], 1, activate=True, batch=False)
+    read_and_zero(wrappers)
+    read_sizes(sizes)
+    (value, _), grads = loss_fn.value_and_grad(params, batch, get_filter_spec(cfg["parameters"], params))
+    (grad,) = grads.values()
+    torch.cuda.synchronize()
+    first_launches, first_rows = read_and_zero(wrappers), read_sizes(sizes)
+    record = {}
+    best, _, _ = angular_optax(copy.deepcopy(cfg), all_data, sas, record=record)
+    torch.cuda.synchronize()
+    launches, rows = read_and_zero(wrappers), read_sizes(sizes)
+    fval = best.electron.distribution_functions.fval.detach().cpu().numpy()
+    np.savez(Path(out_dir) / f"arts_2v_rank{par.rank()}.npz", fval=fval, grad=grad.double().cpu().numpy())
+    return {"first_loss": float(value), "first_launches": first_launches, "first_launch_rows": first_rows,
+            "launches": launches, "launch_rows": rows, "losses": record["losses"], "steps": sum(record["chunk_steps"]),
+            "chunk_seconds": record["chunk_seconds"], "queries": cfg["other"]["npts"] * len(sas["sa"])}
+
+
+def dist_worker(out_dir, target_path):
+    """A rank of the two-rank phases, started by torchrun: the process group with gloo named (two ranks share the
+    one card), then ``dist_whole_shot_rank`` and ``dist_arts_rank``; writes ``rank{r}.json`` into ``out_dir``.  A
+    failure raises and ends the rank with a non-zero code (torchrun then stops the other)."""
+    import torch
+
+    from tsadar_tpu_torch.parallel import dist as par
+
+    wrappers, sizes = launch_sizes(kernel_wrappers())
+    device = par.init_from_env("cuda", backend="gloo")
+    try:
+        out = {"rank": par.rank(), "world": par.world_size(), "backend": torch.distributed.get_backend(),
+               "device": str(device)}
+        out["whole_shot"] = dist_whole_shot_rank(wrappers, sizes, out_dir)
+        out["arts_2v"] = dist_arts_rank(wrappers, sizes, out_dir, target_path)
+        out["collectives"] = dict(par.COUNTS)
+        (Path(out_dir) / f"rank{par.rank()}.json").write_text(json.dumps(out))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_two_ranks(smi, arts_target, out_dir):
+    """Two ranks on the one card (``python -m torch.distributed.run --standalone --nproc_per_node 2`` of
+    DIST_WORKER, gloo named): their results by rank, read from ``out_dir``, and the command's rc and seconds."""
+    import os
+
+    np.savez(Path(out_dir) / "arts_target.npz", target=arts_target.numpy())
+    child = Path(out_dir) / "dist_worker.py"
+    child.write_text(DIST_WORKER)
+    env = dict(os.environ, TSADAR_DIST_TIMEOUT="300")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                          str(child), str(ROOT), str(out_dir), str(Path(out_dir) / "arts_target.npz")],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    ranks = [json.loads(p.read_text()) for p in sorted(Path(out_dir).glob("rank*.json"))]
+    if out.returncode != 0 or len(ranks) != 2:
+        emit({"phase": "dist_two_ranks", "rc": out.returncode, "ranks_reporting": len(ranks),
+              "stderr_tail": out.stderr[-3000:], "gpu": smi, "ok": False})
+        raise RuntimeError(f"the two-rank phases: rc {out.returncode}, {len(ranks)} ranks reported:\n{out.stderr[-4000:]}")
+    return ranks, out, seconds
+
+
+def dist_two_ranks_whole_shot(wrappers, smi, ranks, out, seconds, out_dir, loss_fn, batch, cfg):
+    """``dist_two_ranks``' whole-shot half: each of the two gloo ranks fit 64 of the 128 lineouts (K1-K6 and both K9
+    modes FIT_STEPS times on each rank, at 64 rows each launch); the first step's loss and gradient against this
+    process's single-rank card run (LOSS_TOL, GRAD_TOL of each gradient's largest entry), ``bench_whole_shot.py``'s
+    gates on the gathered parameters, the same final loss on both ranks; each rank's ms a step (two processes share
+    the card: a number for the record)."""
+    import torch
+
+    from tsadar_tpu_torch import ThomsonParams
+
+    params = ThomsonParams.create(cfg["parameters"], N_LINEOUTS, activate=True)
+    (value, _), grads = loss_fn.value_and_grad(params, batch)
+    ref_loss, ref_grads = float(value), {k: g.double().cpu().numpy() for k, g in grads.items()}
+    got = dict(np.load(Path(out_dir) / "whole_shot_grads.npz"))
+    ws = [r["whole_shot"] for r in ranks]
+    loss_err = abs(ws[0]["first_loss"] - ref_loss) / abs(ref_loss)
+    grad_err = {k: float(np.abs(got[k] - ref_grads[k]).max() / np.abs(ref_grads[k]).max()) if k in got else math.inf
+                for k in ref_grads}
+    pixels = np.asarray(ws[0]["pixels"])
+    sel = np.where((pixels >= REAL_WINDOW[0]) & (pixels <= REAL_WINDOW[1]))[0]
+    at = {k: [float(v) for v in np.asarray(ws[0]["fitted"][k])[sel]] for k in REAL_TRUTH}
+    gates = {k: all(abs(v - truth) / truth <= tol for v in at[k]) for k, (truth, tol) in REAL_TRUTH.items()}
+    fit_seconds = [sum(w["chunk_seconds"]) for w in ws]
+    gates |= {"covered": len(sel) > 0, "final_loss": ws[0]["losses"][-1] < REAL_LOSS_CEILING,
+              "lineout_median": float(np.median(ws[0]["row_loss"])) < REAL_LOSS_CEILING,
+              "fit_time": max(fit_seconds) < REAL_FIT_SECONDS}
+    half = N_LINEOUTS // 2
+    want = {k: FIT_STEPS * int(k in REAL_FIT_KERNELS) for k in wrappers}
+    checks = {"gloo_two_ranks": all(r["backend"] == "gloo" and r["world"] == 2 for r in ranks),
+              "launches": all(w["launches"] == want for w in ws),
+              "rows_64": all(w["launch_rows"] == {k: [half] for k in REAL_FIT_KERNELS} for w in ws),
+              "first_loss": loss_err <= LOSS_TOL, "first_grads": all(e <= GRAD_TOL for e in grad_err.values()),
+              "quality_ok": all(gates.values()),
+              "same_final_loss": ws[0]["best_loss"] == ws[1]["best_loss"] and ws[0]["losses"] == ws[1]["losses"]}
+    ok = all(checks.values())
+    emit({"phase": "dist_two_ranks_whole_shot", "ranks": 2, "backend": "gloo", "lineouts": N_LINEOUTS,
+          "rows_per_rank": [w["rows"] for w in ws], "steps": FIT_STEPS, "checks": checks, "gates": gates,
+          "at_pixels_500_510": at, "truth_and_tol": REAL_TRUTH, "first_loss": ws[0]["first_loss"],
+          "first_loss_single_rank_card": ref_loss, "first_loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
+          "first_grad_err_of_max": grad_err, "grad_tol": GRAD_TOL, "final_loss": [w["losses"][-1] for w in ws],
+          "best_loss": [w["best_loss"] for w in ws], "median_lineout_loss": float(np.median(ws[0]["row_loss"])),
+          "fit_seconds_per_rank": fit_seconds, "ms_per_step_per_rank": [1e3 * f / FIT_STEPS for f in fit_seconds],
+          "launches_per_rank": [w["launches"] for w in ws], "launch_rows_per_rank": [w["launch_rows"] for w in ws],
+          "collectives_per_rank": [r["collectives"] for r in ranks], "command_seconds": seconds,
+          "stderr_tail": out.stderr[-1000:], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"dist_two_ranks_whole_shot: checks {checks}, gates {gates}, grads {grad_err}")
+    return [w["launches"] for w in ws]
+
+
+def dist_arts_2v_points(wrappers, smi, ranks, out_dir, arts_cfg, arts_sas, target):
+    """``dist_two_ranks``' ARTS half: the 2V deck at full width with ``shard_2v_points`` on two gloo ranks, half of
+    its chi points a rank; the loss and EDF gradient at the start against this process's unsharded card run
+    (LOSS_TOL, GRAD_TOL), the layout step, K7 and K8 once a step on each rank with K7 and K8 at half the points,
+    DIST_ARTS_STEPS adam steps whose loss falls, and the final EDF the same bits on both ranks."""
+    import torch
+
+    from tsadar_tpu_torch import LossFunction, ThomsonParams
+    from tsadar_tpu_torch.utils.process.batches import angular_batch
+
+    cfg = copy.deepcopy(arts_cfg)
+    all_data = arts_fit_data(cfg, target)
+    lineouts = cfg["data"]["lineouts"]
+    batch = angular_batch(all_data, slice(lineouts["start"], lineouts["end"]))
+    loss_fn = LossFunction(cfg, arts_sas, batch)
+    params = ThomsonParams.create(cfg["parameters"], 1, activate=True, batch=False)
+    (value, _), grads = loss_fn.value_and_grad(params, batch)
+    ref_loss, (ref_grad,) = float(value), [g.double().cpu().numpy() for g in grads.values()]
+    del loss_fn
+    torch.cuda.empty_cache()
+    arts = [r["arts_2v"] for r in ranks]
+    npz = [np.load(Path(out_dir) / f"arts_2v_rank{r}.npz") for r in range(2)]
+    queries = arts[0]["queries"]
+    half = queries // 2
+    loss_err = abs(arts[0]["first_loss"] - ref_loss) / abs(ref_loss)
+    grad_err = float(np.abs(npz[0]["grad"] - ref_grad).max() / np.abs(ref_grad).max())
+    steps = arts[0]["steps"]
+    want = {k: steps * int(k in ARTS_KERNELS) for k in wrappers}
+    first_want = {k: int(k in ARTS_KERNELS) for k in wrappers}
+    rows_ok = all(a["launch_rows"].get("chi_bilinear_fwd") == [half] and a["launch_rows"].get("chi_bilinear_bwd") == [half]
+                  and a["first_launch_rows"].get("chi_bilinear_fwd") == [half] for a in arts)
+    losses = arts[0]["losses"]
+    checks = {"first_loss": loss_err <= LOSS_TOL, "first_grad": grad_err <= GRAD_TOL,
+              "first_launches": all(a["first_launches"] == first_want for a in arts),
+              "launches": all(a["launches"] == want for a in arts) and steps == DIST_ARTS_STEPS,
+              "half_the_points": rows_ok and queries == 2 * half, "loss_falls": losses[-1] < losses[0],
+              "finite": bool(np.isfinite(losses).all()) and all(bool(np.isfinite(z["fval"]).all()) for z in npz),
+              "same_parameters": bool(np.array_equal(npz[0]["fval"], npz[1]["fval"])) and arts[0]["losses"] == arts[1]["losses"]}
+    ok = all(checks.values())
+    ms = [1e3 * sum(a["chunk_seconds"]) / a["steps"] for a in arts]
+    emit({"phase": "dist_arts_2v_points", "ranks": 2, "backend": "gloo", "queries": queries, "queries_per_rank": half,
+          "steps": steps, "lr": ARTS_FIT_LR, "checks": checks, "first_loss": arts[0]["first_loss"],
+          "first_loss_unsharded_card": ref_loss, "first_loss_rel_err": loss_err, "loss_tol": LOSS_TOL,
+          "first_grad_err_of_max": grad_err, "grad_tol": GRAD_TOL, "first_loss_last_loss": [losses[0], losses[-1]],
+          "ms_per_step_per_rank": ms, "launches_per_rank": [a["launches"] for a in arts],
+          "launch_rows_per_rank": [a["launch_rows"] for a in arts], "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"dist_arts_2v_points: checks {checks}, loss {loss_err:.3e}, grad {grad_err:.3e}")
+    return [a["launches"] for a in arts]
+
+
 KERNELS = {
     "lin_lookup_fwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:84", "K1"),
     "lin_lookup_bwd": ("tsadar_tpu_torch/csrc/lin_lookup.cu", "tsadar_tpu/ops/interp_kernel2.py:193", "K2"),
@@ -3351,7 +3793,7 @@ def main():
     sys.path.insert(0, str(ROOT))
 
     from tsadar_tpu_torch import ThomsonScatteringDiagnostic, get_scattering_angles
-    from tsadar_tpu_torch.ops import build, chi_bilinear, cubic_lookup, lin_lookup, pv_tables, spectrum_tail
+    from tsadar_tpu_torch.ops import build
 
     # 1. device
     smi = subprocess.run(
@@ -3381,21 +3823,7 @@ def main():
     diag = ThomsonScatteringDiagnostic(cfg, sas)
     params = make_params(cfg, draws, N_LINEOUTS, None, None)
     batch = make_batch(N_LINEOUTS)
-    wrappers = {
-        "lin_lookup_fwd": lin_lookup.lin_lookup_fwd,
-        "lin_lookup_bwd": lin_lookup.lin_lookup_bwd,
-        "cubic_lookup_fwd": cubic_lookup.cubic_lookup_fwd,
-        "cubic_lookup_bwd": cubic_lookup.cubic_lookup_bwd,
-        "spectrum_tail_fwd": spectrum_tail.spectrum_tail_fwd,
-        "spectrum_tail_bwd": spectrum_tail.spectrum_tail_bwd,
-        "chi_bilinear_fwd": chi_bilinear.chi_bilinear_fwd,
-        "chi_bilinear_pack": chi_bilinear.chi_bilinear_pack,
-        "chi_bilinear_bwd": chi_bilinear.chi_bilinear_bwd,
-        "pv_tables_fwd": pv_tables.pv_tables_fwd,
-        "pv_tables_bwd": pv_tables.pv_tables_bwd,
-        "lin_lookup_meta_fwd": lin_lookup.lin_lookup_meta_fwd,
-        "lin_lookup_meta_bwd": lin_lookup.lin_lookup_meta_bwd,
-    }
+    wrappers = kernel_wrappers()
     arts_cfg, arts_sas = load_arts_deck()
     arts_diag, arts_params = arts_models(arts_cfg, arts_sas, None)
 
@@ -3422,7 +3850,7 @@ def main():
     padded_launches = real_data_lookup_padded(chi_table, chi_poles, xie, wrappers)
     real_data_grad_check(*lineouts_of(real_cfg, real_sa, real_all, REAL_CHECK_PIXELS), "real_data_grad_check",
                          pixels=list(REAL_CHECK_PIXELS))
-    real_fit_launches = real_data_fit(real_cfg, real_loss_fn, real_fit_batch, wrappers, smi)
+    real_fit_launches, real_fit_losses = real_data_fit(real_cfg, real_loss_fn, real_fit_batch, wrappers, smi)
 
     # 4b. this slice's path: the main deck as written through fitter.fit (scipy L-BFGS-B on the card), loss
     # and gradient at its batch sizes, then its postprocess with a refit and the sigma-Hessian
@@ -3548,6 +3976,21 @@ def main():
                               arts_1v[0]["other"]["npts"] * len(arts_1v[1]["sa"]))
     arts_other_forward("arts_1v_forward", *arts_1v, ("lin_lookup_fwd", "cubic_lookup_fwd", "pv_tables_fwd"), wrappers,
                        plain_f32_tol=ARTS_1V_F32_TOL)
+
+    # 9. this slice's paths: the multi-GPU sharding -- a one-rank NCCL group through torchrun and the command line,
+    # then two gloo ranks on the one card: the whole-shot fit, half of the lineouts a rank, and the ARTS 2V deck,
+    # half of its chi points a rank
+    import tempfile
+
+    path_launches["dist_one_rank_nccl"] = dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all,
+                                                          real_fit_losses)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as dist_dir:
+        dist_ranks, dist_out, dist_seconds = dist_two_ranks(smi, arts_target, dist_dir)
+        for r, counts in enumerate(dist_two_ranks_whole_shot(wrappers, smi, dist_ranks, dist_out, dist_seconds, dist_dir,
+                                                             real_loss_fn, real_fit_batch, real_cfg)):
+            path_launches[f"dist_two_ranks_whole_shot_rank{r}"] = counts
+        for r, counts in enumerate(dist_arts_2v_points(wrappers, smi, dist_ranks, dist_dir, arts_cfg, arts_sas, arts_target)):
+            path_launches[f"dist_arts_2v_points_rank{r}"] = counts
 
     def launches_of(k):
         """(on its main path, in that path's fit, fit steps): the ARTS path (K7, K8), K10's drive on the

@@ -229,17 +229,24 @@ def test_arts_1v_forward_matches_the_committed_golden():
 
 
 def test_what_the_slice_left_out_raises():
-    """2V point sharding still raises (ROADMAP.md §1 item 8).  What raised here until it was ported runs: the
-    exact mode (``tests/test_torch_exact_mode.py`` holds it to the JAX package) and the plain "angular" spectype,
-    here on the 2V deck (1024 wavelengths, the 1D instrument response's rebin) against the JAX diagnostic to
-    1e-10 of peak."""
+    """What raised here until it was ported runs.  2V point sharding (``tests/test_torch_parallel_2v.py`` holds it
+    on 2 and 4 ranks to the JAX package's): in one process, with no process group, the flag does nothing, through
+    the diagnostic and through the deck's ``other.shard_2v_points`` in ``LossFunction``, the same image to 1e-12 of
+    peak.  The exact mode (``tests/test_torch_exact_mode.py`` holds it to the JAX package) and the plain "angular"
+    spectype, here on the 2V deck (1024 wavelengths, the 1D instrument response's rebin) against the JAX
+    diagnostic to 1e-10 of peak."""
     cfg, sas = _config(size=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", shard_2v_points=True)
+    _, tp = _params(cfg)
     sharded = copy.deepcopy(cfg)
     sharded["other"]["shard_2v_points"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        port.LossFunction(sharded, sas, _batch(cfg), device="cpu")
+    with torch.no_grad():  # the model's image [fine angles, wavelengths]
+        image = port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu").model(tp())[0].numpy()
+        flagged = port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", shard_2v_points=True).model(tp())[0].numpy()
+        loss_fn = port.LossFunction(sharded, sas, _batch(cfg), device="cpu")
+        through_loss = loss_fn.ts_diag.model(tp())[0].numpy()
+    assert loss_fn.ts_diag.model.electron_form_factor.shard_points and image.size and np.abs(image).max() > 0
+    for got in (flagged, through_loss):
+        np.testing.assert_allclose(got, image, rtol=0, atol=1e-12 * np.abs(image).max())
     assert port.ThomsonScatteringDiagnostic(cfg, sas, device="cpu", mode_2v="exact").model.electron_form_factor.mode == "exact"
 
     plain = copy.deepcopy(cfg)

@@ -10,9 +10,12 @@
   ``fitter.fit(cfg, device="cpu")``'s final parameters to 1e-12 (the two share
   one fit of the streak background: ``same_scipy_fits``);
 * ports of ``run_job`` and ``run_for_app`` from ``test_runner_paths.py``;
-* the forward mode of ``configs/1d``, the profile option, and what raises
-  before any work (``TSADAR_MULTIHOST``, an optimizer the angular fit does
-  not take, an unknown mode);
+* the forward mode of ``configs/1d``, the profile option, and what happens
+  before any work: ``TSADAR_MULTIHOST`` starts the process group once, before
+  the run is registered, and nothing starts it without the variable (the
+  contract of the JAX package's hook, ``tests/test_parallel/test_multihost_hook.py``,
+  probed in a child process with ``init_process_group`` wrapped); an
+  optimizer the angular fit does not take and an unknown mode raise;
 * slow: a whole ``runner.run`` of the JAX package against the port's command
   line on the same decks.
 """
@@ -206,14 +209,41 @@ def test_the_profile_option_logs_a_torch_trace(tmp_path, monkeypatch):
     assert trace.is_file() and "traceEvents" in json.loads(trace.read_text())
 
 
+# the child of the multihost case: init_process_group wrapped to count its calls and to note whether a run was
+# registered before it (then joined as a group of one through a file store), then runner.run of configs/1d
+_MULTIHOST_PROBE = """
+import os, sys
+import torch.distributed as dist
+calls, real = [], dist.init_process_group
+def init(*args, **kwargs):
+    calls.append(os.path.exists(os.environ["TSADAR_RUNS_DIR"]))
+    real(*args, **dict(kwargs, init_method="file://" + sys.argv[1], world_size=1, rank=0))
+dist.init_process_group = init
+from tsadar_tpu_torch import runner
+runner.run("configs/1d", "forward", device="cpu")
+print("INIT_CALLS", len(calls), "RUN_BEFORE", any(calls), "UP_AFTER", dist.is_initialized())
+"""
+
+
+def _multihost_probe(tmp_path, multihost):
+    env = _env(tmp_path) | {"TSADAR_RUNS_DIR": str(tmp_path / "probe_runs")}
+    env.pop("TSADAR_MULTIHOST", None)
+    env.pop("WORLD_SIZE", None)
+    if multihost:
+        env["TSADAR_MULTIHOST"] = "1"
+    out = subprocess.run([sys.executable, "-c", _MULTIHOST_PROBE, str(tmp_path / f"store{int(multihost)}")], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
 @pytest.mark.parametrize("case", ["multihost", "angular_fit", "unknown_mode"])
 def test_what_the_port_cannot_run_raises_before_any_work(tmp_path, monkeypatch, case):
     monkeypatch.setenv("TSADAR_RUNS_DIR", str(tmp_path / "runs"))
     monkeypatch.chdir(ROOT)
-    if case == "multihost":
-        monkeypatch.setenv("TSADAR_MULTIHOST", "1")
-        with pytest.raises(NotImplementedError, match="§1 item 8"):
-            runner.run("configs/1d", "forward", device="cpu")
+    if case == "multihost":  # runs now: the hook's contract, as the JAX package's test holds its own
+        assert "INIT_CALLS 1 RUN_BEFORE False UP_AFTER False" in _multihost_probe(tmp_path, True)
+        assert "INIT_CALLS 0 RUN_BEFORE False UP_AFTER False" in _multihost_probe(tmp_path, False)
     elif case == "angular_fit":  # an angular fit runs (tests/test_torch_arts_fit.py), with every optax optimizer;
         # an optax callable that is no optimizer, which the JAX package's schema takes, does not
         defaults, inputs = _decks("arts-2d")

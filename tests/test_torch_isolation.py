@@ -50,6 +50,7 @@ def test_importing_the_port_loads_no_jax():
         "from tsadar_tpu_torch.core.params import distributions, spherical, ts_params\n"
         "from tsadar_tpu_torch.core.physics import form_factor, interp, irf, spectrum\n"
         "from tsadar_tpu_torch import cli, queue, runner\n"
+        "from tsadar_tpu_torch.parallel import dist\n"
         "from tsadar_tpu_torch.forward import calc_series\n"
         "from tsadar_tpu_torch.utils import artifacts, calibration, console, export, mlflow_shim, ncwriter, schema\n"
         "from tsadar_tpu_torch.utils.data_handling import hdf4, load_ts_data\n"

@@ -7,7 +7,11 @@ a queued run instead (``runner.run_job``).  The run goes to the card unless
 command fails with ``device.resolve_device``'s message before any work.  A
 run's files land under ``$TSADAR_RUNS_DIR`` (default ``./tsadar_runs``);
 with ``MLFLOW_EXPORT`` set the finished run is exported for ingestion
-(``utils.export.export_run``).
+(``utils.export.export_run``).  Under ``torchrun`` every rank runs this
+command (``python -m torch.distributed.run --nproc_per_node N -m
+tsadar_tpu_torch ...``): the process group spans the run and its export,
+the ranks share the fit, and rank 0 writes and exports the run
+(``utils.mlflow_shim.writer``).
 """
 
 import argparse
@@ -17,7 +21,9 @@ import os
 def main(argv=None):
     """Parse ``argv`` (default: the command line) and run; returns the run's id."""
     from .device import resolve_device
+    from .parallel import dist as par
     from .runner import run, run_job
+    from .utils import mlflow_shim as mlflow
     from .utils.export import export_run
 
     parser = argparse.ArgumentParser(prog="python -m tsadar_tpu_torch",
@@ -36,14 +42,15 @@ def main(argv=None):
     except RuntimeError as e:
         parser.error(f"{e} (--device cpu)")
 
-    if args.run_id is not None:
-        run_job(args.run_id, mode=args.mode, nested=False, device=args.device)
-        run_id = args.run_id
-    else:
-        run_id = run(args.cfg, mode=args.mode, device=args.device)
+    with par.process_group(args.device):
+        if args.run_id is not None:
+            run_job(args.run_id, mode=args.mode, nested=False, device=args.device)
+            run_id = args.run_id
+        else:
+            run_id = run(args.cfg, mode=args.mode, device=args.device)
 
-    if "MLFLOW_EXPORT" in os.environ:
-        export_run(run_id)
+        if "MLFLOW_EXPORT" in os.environ and mlflow.writer():
+            export_run(run_id)
     return run_id
 
 

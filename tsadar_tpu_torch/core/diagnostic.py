@@ -15,7 +15,9 @@ alone, as the fitted spectra's two most prominent peaks
 ``postprocess_theory``.
 
 ``mode_2v`` ("table" or "exact") is the 2V form factor's mode
-(``FormFactor``).
+(``FormFactor``); ``shard_2v_points`` splits table mode's chi evaluation
+points between the ranks of a process group (``FormFactor``'s
+``shard_points``; nothing without one).
 """
 
 import numpy as np
@@ -44,8 +46,6 @@ class ThomsonScatteringDiagnostic(nn.Module):
 
     def __init__(self, cfg, scattering_angles, device=None, dtype=None, mode_2v="table", shard_2v_points=False):
         super().__init__()
-        if shard_2v_points:
-            raise NotImplementedError("2V point sharding is not ported yet (ROADMAP.md §1 item 8)")
         spectype = cfg["other"]["extraoptions"]["spectype"]
         self.angular = spectype == "angular_full"
         self.batched = "angular" not in spectype
@@ -54,7 +54,8 @@ class ThomsonScatteringDiagnostic(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype or working_dtype(self.device)
-        self.model = SpectrumModel(cfg, scattering_angles, self.device, self.dtype, mode_2v=mode_2v)
+        self.model = SpectrumModel(cfg, scattering_angles, self.device, self.dtype, mode_2v=mode_2v,
+                                   shard_2v_points=shard_2v_points)
         if self.angular:
             self.sas = {"angAxis": self._tensor(scattering_angles["angAxis"])}
 

@@ -39,7 +39,17 @@ gradient, ``jnp.interp`` of both at |xi_e| and the pole-aware
 intermediates the backward recomputes (``torch.utils.checkpoint``); plain
 tensor code on every device, as the JAX package's is plain ``jnp``.  The
 gradient reaches Te, ne, lam, Va and ud through each point's rotation angle.
-Point sharding is not ported (ROADMAP.md §1 item 8).
+
+``shard_points=True`` splits table mode's evaluation points between the ranks
+of a process group (``parallel.dist``), the JAX package's point sharding: each
+rank looks up its contiguous slice of the flattened (beta, |xi_e|, k lambda_De)
+in the replicated tables (the layout step and K7 on the card), and
+``gather_points`` returns the whole chi arrays to every rank, where the
+spectrum's assembly runs replicated, as the JAX package re-replicates them.
+Backward, K8 runs on the rank's slice, the tables' cotangent is summed over
+the ranks and the queries' gathered (``replicated_input``, ``scatter_points``):
+every rank's gradient is the unsharded one.  The exact mode ignores the flag,
+and so does a process of one rank or none.
 """
 
 import functools
@@ -50,6 +60,7 @@ import torch
 
 from . import ratint
 from .constants import C, ME_KEV, MP_KEV, RE_CM, PLASMA_FREQ_CONST
+from ...parallel import dist as par
 from torch.utils.checkpoint import checkpoint
 
 from .interp import (bicubic_at, bicubic_slopes, chi_bilinear_lookup, chi_tables, cubic_lookup, interp1d,
@@ -285,16 +296,17 @@ class FormFactor:
             own projection, the reference's semantics) (2V only).
         projection: "fourier" (the slice theorem: NUDFT on the card, fft2 on the CPU) or "rotate" (bicubic
             rotations of the EDF on every device): how table mode projects (2V only).
+        shard_points: split table mode's chi evaluation points between the ranks of a process group (2V only).
     """
 
     def __init__(self, lambda_range, npts, lam_shift, scattering_angles, num_grad_points, device, dtype,
-                 ud_ang=None, va_ang=None, num_beta=256, mode="table", projection="fourier"):
+                 ud_ang=None, va_ang=None, num_beta=256, mode="table", projection="fourier", shard_points=False):
         if mode not in ("table", "exact"):
             raise ValueError(f"2V mode must be 'table' or 'exact', got {mode!r}")
         if projection not in ("fourier", "rotate"):
             raise ValueError(f"2V projection must be 'fourier' or 'rotate', got {projection!r}")
         self.ud_angle, self.va_angle, self.num_beta = ud_ang, va_ang, num_beta
-        self.mode, self.projection = mode, projection
+        self.mode, self.projection, self.shard_points = mode, projection, shard_points
         as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
         lamAxis = np.linspace(lambda_range[0], lambda_range[1], npts)
         self.omgs = as_t(2.0e7 * np.pi * C / lamAxis)  # scattered frequency axis [L], 1/s
@@ -558,18 +570,28 @@ class FormFactor:
 
         Table mode: one fused lookup of the stacked (f1d | df1d | chi_R)
         tables, ``interp.chi_bilinear_lookup`` (the K7/K8 kernels on the
-        card).  Exact mode: each point's own projection (``calc_chi_vals``).
+        card), on this rank's slice of the points with ``shard_points``.
+        Exact mode: each point's own projection (``calc_chi_vals``).
         """
         if self.mode == "exact":
             return self._all_chi_vals_exact(vx, DF, beta, xie_mag, klde_mag)
         _, f1d, df1d, pole_grid, chiR_tab = self._chi_tables(vx, DF)
         Tcat, T4 = chi_tables(f1d, df1d, chiR_tab)  # [B, 3 nvx - 2], and its quad layout on the card
+        ranks = par.point_ranks() if self.shard_points else None
+        shape = beta.shape
+        if ranks is not None:  # this rank's slice of the points; the tables' cotangent summed over the ranks
+            beta, xie_mag, klde_mag = par.scatter_points(torch.stack([beta, xie_mag, klde_mag], -1).reshape(-1, 3),
+                                                         ranks).unbind(-1)
+            Tcat = par.replicated_input(Tcat, ranks)
         fe_vphi, dfe, chiR_raw = chi_bilinear_lookup(
             Tcat, beta, xie_mag, vx[0], vx[1] - vx[0], pole_grid[0], pole_grid[1] - pole_grid[0], T4
         )
         # electron Landau term with the Kramers-Kronig-consistent MINUS sign (see ``_reduced_tail``)
         chiEI = -math.pi / (klde_mag**2) * dfe
         chiERrat = -1.0 / (klde_mag**2) * chiR_raw
+        if ranks is not None:  # the whole arrays on every rank
+            out = par.gather_points(torch.stack([fe_vphi, chiEI, chiERrat], -1), ranks, math.prod(shape))
+            fe_vphi, chiEI, chiERrat = (o.reshape(shape) for o in out.unbind(-1))
         return fe_vphi, chiEI, chiERrat
 
     def _fields_2v(self, params):

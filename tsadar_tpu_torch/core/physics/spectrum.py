@@ -36,7 +36,7 @@ FILTER_SUPPRESSION_OD = 9  # the OD of the filter band in the unreduced electron
 
 
 class SpectrumModel:
-    def __init__(self, config: Dict, scattering_angles: Dict, device, dtype, mode_2v="table"):
+    def __init__(self, config: Dict, scattering_angles: Dict, device, dtype, mode_2v="table", shard_2v_points=False):
         self.config = config
         other = config["other"]
         self.dim = config["parameters"]["electron"]["fe"]["dim"]
@@ -51,7 +51,8 @@ class SpectrumModel:
         self.weight = weights[0]
         # ARTS: the whole [fine angle, angle] weight matrix, for the electron feature's image
         self.weight_matrix = weights if self.angular_full else None
-        angles_2v = {} if self.dim < 2 else dict(ud_ang=grad_cfg["ud"]["angle"], va_ang=grad_cfg["Va"]["angle"], mode=mode_2v)
+        angles_2v = {} if self.dim < 2 else dict(ud_ang=grad_cfg["ud"]["angle"], va_ang=grad_cfg["Va"]["angle"], mode=mode_2v,
+                                                  shard_points=shard_2v_points)
 
         def build(lam_range, lam_shift):
             return FormFactor(lam_range, other["npts"], lam_shift, scattering_angles, num_grad_points, device, dtype,

@@ -16,12 +16,20 @@ argument, so ``loadData`` is handed the list and finds no data.  The port's
 ``load_data_for_fitting`` raises at that same point, with that reason
 (ROADMAP.md §3).  ``prepare_multiplexed`` gives the data that the list arm
 means to give, each shot prepared on its own; ``loops.angular_optax`` fits it.
+
+In a process group (``parallel.dist``) every rank calls ``fit``: rank 0 alone
+prepares the data and hands it, with the config as the pipeline leaves it, to
+the others (two processes can prepare different data: scipy's streak-background
+fit ends in either of two mirror solutions); every rank fits (the loops share
+the work), and rank 0 alone runs the postprocess and writes the run's files, as
+the JAX package's postprocess runs unsharded.
 """
 
 import time
 
 import numpy as np
 
+from ..parallel import dist as par
 from ..utils import mlflow_shim as mlflow
 from ..utils.console import log_info
 from ..utils.process import postprocess, prepare
@@ -89,14 +97,16 @@ def fit(config, device=None, record=None):
     The fit runs on the card unless ``device="cpu"`` is given; the sigma-Hessian
     of the postprocess runs on the CPU in float64 either way.  The final
     parameters are ``utils.artifacts.get_final_params``'s dict of numpy arrays (with
-    ``"sigmas"`` when ``other.calc_sigmas`` is on).  The stage seconds go to
+    ``"sigmas"`` when ``other.calc_sigmas`` is on); on a rank other than 0 of a
+    process group, which runs no postprocess, they are None.  The stage seconds go to
     the tracker (``setup_time``, ``fit_time``, ``postprocess_time``, rounded to
     0.01 s as the JAX package logs them, with ``overall loss`` and the status
     tags ``preprocessing``, ``minimizing``, ``postprocessing``) and, with
     ``record`` (a dict), unrounded into it (``setup_seconds``,
     ``fit_seconds``, ``postprocess_seconds``) beside the loop's own record
     (``scipy``: scipy's results per batch; ``lbfgs``: the device L-BFGS's
-    values, evaluations and step sizes per step; ``angular``: the angular
+    values, evaluations and step sizes per step; ``adam``: the adam loop's
+    losses and chunks; ``angular``: the angular
     loop's losses and chunks) and the postprocess's own entries.  ``config``
     is changed as the JAX package changes it (the lineout pixels, the
     quantities the data pipeline derives).
@@ -106,7 +116,7 @@ def fit(config, device=None, record=None):
     stage_start = time.perf_counter()
     mlflow.set_tag("status", "preprocessing")
     config = _lineout_selection(config)
-    all_data, sa, all_axes = load_data_for_fitting(config)
+    all_data, sa, all_axes = _prepared(config)
     n_samples = max(len(all_data["e_data"]), len(all_data["i_data"]))
     sample_indices = np.arange(n_samples)
     num_batches = n_samples // config["optimizer"]["batch_size"] or 1
@@ -121,7 +131,8 @@ def fit(config, device=None, record=None):
         fitted_weights, overall_loss, loss_fn = angular_optax(config, all_data, sa, device=device,
                                                               record=record.setdefault("angular", {}))
     else:
-        loop_record = record.setdefault("lbfgs" if config["optimizer"]["method"] == "lbfgs" else "scipy", {})
+        method = config["optimizer"]["method"]
+        loop_record = record.setdefault(method if method in ("adam", "lbfgs") else "scipy", {})
         fitted_weights, overall_loss, loss_fn = one_d_loop(
             config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
         )
@@ -130,11 +141,27 @@ def fit(config, device=None, record=None):
     mlflow.log_metrics({"fit_time": round(record["fit_seconds"], 2)})
     log_info(f"fit: {record['fit_seconds']:.2f} s, overall loss {float(overall_loss):.6g}")
 
+    if not mlflow.writer():  # the postprocess writes the run's files: rank 0's
+        return None, float(overall_loss)
     stage_start = time.perf_counter()
     mlflow.set_tag("status", "postprocessing")
     log_info("postprocessing")
-    final_params = postprocess.postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record)
+    with par.local():
+        final_params = postprocess.postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record)
     record["postprocess_seconds"] = time.perf_counter() - stage_start
     mlflow.log_metrics({"postprocess_time": round(record["postprocess_seconds"], 2)})
     log_info(f"postprocess: {record['postprocess_seconds']:.2f} s")
     return final_params, float(overall_loss)
+
+
+def _prepared(config):
+    """``load_data_for_fitting(config)``; in a process group rank 0's, handed to every rank with the config as
+    the pipeline changed it (``config`` is updated in place on every rank)."""
+    if not par.initialized():
+        return load_data_for_fitting(config)
+    prepared = (config, load_data_for_fitting(config)) if par.rank() == 0 else None
+    changed, prepared = par.broadcast_object(prepared)
+    if par.rank() != 0:
+        config.clear()
+        config.update(changed)
+    return prepared

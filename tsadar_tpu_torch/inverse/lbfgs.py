@@ -23,6 +23,11 @@ scalars (the trial's value and slope) on the host, in float64: so this
 line-search trial.  The JAX package takes a backtracking line search on the
 TPU only, where zoom's nested loops fault that runtime; the port takes zoom on
 every device.
+
+Every inner product goes through ``dot`` (``torch.dot`` unless the caller
+gives another): a fit whose vector is split between ranks passes the product
+over all of them (``parallel.dist.global_dot``), so that each rank takes the
+unsharded steps on its own rows.
 """
 
 import math
@@ -68,29 +73,32 @@ def init(x, memory_size=MEMORY_SIZE):
     )
 
 
-def _precondition(updates, dw_mem, du_mem, rhos, identity_scale, memory_idx):
+def _precondition(updates, dw_mem, du_mem, rhos, identity_scale, memory_idx, dot=torch.dot):
     """The two-loop recursion: the memory's inverse-Hessian estimate times ``updates``."""
     m = rhos.shape[0]
     indices = [(memory_idx + i) % m for i in range(m)]
     vec, alphas = updates, [None] * m
     for j in reversed(range(m)):  # newest to oldest
         i = indices[j]
-        alphas[j] = rhos[i] * torch.dot(dw_mem[i], vec)
+        alphas[j] = rhos[i] * dot(dw_mem[i], vec)
         vec = vec - alphas[j] * du_mem[i]
     vec = identity_scale * vec
     for j in range(m):  # oldest to newest
         i = indices[j]
-        beta = rhos[i] * torch.dot(du_mem[i], vec)
+        beta = rhos[i] * dot(du_mem[i], vec)
         vec = vec + (alphas[j] - beta) * dw_mem[i]
     return vec
 
 
-def scale_by_lbfgs(grad, state, x):
-    """(preconditioned gradient, the state's memory after this step's secant pair)."""
+def scale_by_lbfgs(grad, state, x, dot=None):
+    """(preconditioned gradient, the state's memory after this step's secant pair); ``dot``: the inner product
+    (default ``torch.dot``, and the norm ``vector_norm``)."""
+    norm = torch.linalg.vector_norm if dot is None else (lambda v: torch.sqrt(dot(v, v)))  # noqa: E731
+    dot = torch.dot if dot is None else dot
     m = state.weights.shape[0]
     memory_idx, prev_idx = state.count % m, (state.count - 1) % m
     dw, du = x - state.params, grad - state.updates
-    vdot = torch.dot(du, dw)
+    vdot = dot(du, dw)
     weight = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
     if state.count == 0:  # no secant pair yet
         dw, du, weight = torch.zeros_like(dw), torch.zeros_like(du), torch.zeros_like(weight)
@@ -98,11 +106,11 @@ def scale_by_lbfgs(grad, state, x):
     dw_mem[prev_idx], du_mem[prev_idx], rhos[prev_idx] = dw, du, weight
 
     if state.count > 0:
-        denominator = torch.dot(du, du)
-        identity_scale = torch.where(denominator > 0.0, torch.dot(du, dw) / denominator, torch.ones_like(denominator))
+        denominator = dot(du, du)
+        identity_scale = torch.where(denominator > 0.0, dot(du, dw) / denominator, torch.ones_like(denominator))
     else:  # the first step's trust region: a ball of radius 1
-        identity_scale = torch.clamp(1.0 / torch.linalg.vector_norm(grad), max=1.0)
-    precond = _precondition(grad, dw_mem, du_mem, rhos, identity_scale, memory_idx)
+        identity_scale = torch.clamp(1.0 / norm(grad), max=1.0)
+    precond = _precondition(grad, dw_mem, du_mem, rhos, identity_scale, memory_idx, dot)
     return precond, replace(state, count=state.count + 1, params=x, updates=grad, diff_params=dw_mem,
                             diff_updates=du_mem, weights=rhos)
 
@@ -188,16 +196,16 @@ class _Search:
     safe_grad: torch.Tensor = None
 
 
-def _on_line(value_and_grad, x, stepsize, d):
+def _on_line(value_and_grad, x, stepsize, d, dot=torch.dot):
     """(value, gradient, slope) at x + stepsize d; the host reads the value and the slope."""
     value, grad = value_and_grad(x + stepsize * d)
-    return float(value), grad, float(torch.dot(grad, d))
+    return float(value), grad, float(dot(grad, d))
 
 
-def _search_interval(s, value_and_grad, x, d):
+def _search_interval(s, value_and_grad, x, d, dot=torch.dot):
     """Algorithm 3.5 of Nocedal and Wright: grow the step until an interval holds an acceptable one."""
     new_stepsize = s.stepsize_guess if s.count == 0 else INCREASE_FACTOR * s.stepsize
-    new_value, new_grad, new_slope = _on_line(value_and_grad, x, new_stepsize, d)
+    new_value, new_grad, new_slope = _on_line(value_and_grad, x, new_stepsize, d, dot)
     dec = _decrease_error(new_stepsize, new_value, new_slope, s.value_init, s.slope_init)
     curv = _curvature_error(new_slope, s.slope_init)
     new_error = max(dec, curv)
@@ -223,7 +231,7 @@ def _search_interval(s, value_and_grad, x, d):
     )
 
 
-def _zoom_into_interval(s, value_and_grad, x, d):
+def _zoom_into_interval(s, value_and_grad, x, d, dot=torch.dot):
     """Algorithm 3.6 of Nocedal and Wright: shrink the interval by a cubic, quadratic or bisection step."""
     low, high = s.low, s.high
     delta = abs(high - low)
@@ -239,7 +247,7 @@ def _zoom_into_interval(s, value_and_grad, x, d):
         else:
             middle = (low + high) / 2.0
 
-    value_middle, grad_middle, slope_middle = _on_line(value_and_grad, x, middle, d)
+    value_middle, grad_middle, slope_middle = _on_line(value_and_grad, x, middle, d, dot)
     dec = _decrease_error(middle, value_middle, slope_middle, s.value_init, s.slope_init)
     curv = _curvature_error(slope_middle, s.slope_init)
     new_error = max(dec, curv)
@@ -280,21 +288,21 @@ def _try_safe_step(s):
     return s
 
 
-def zoom_linesearch(value_and_grad, x, d, value, grad, stepsize_guess=1.0):
+def zoom_linesearch(value_and_grad, x, d, value, grad, stepsize_guess=1.0, dot=torch.dot):
     """The zoom line search along ``d`` from ``x`` (value, gradient given there): its final state."""
-    slope = float(torch.dot(d, grad))
+    slope = float(dot(d, grad))
     s = _Search(count=0, stepsize_guess=stepsize_guess, stepsize=0.0, value=value, grad=grad, slope=slope,
                 value_init=value, slope_init=slope, value_low=value, slope_low=slope, value_high=value,
                 slope_high=slope, value_cubic_ref=value, safe_value=value, safe_grad=grad)
     while not (s.done or s.failed):
-        s = (_zoom_into_interval if s.interval_found else _search_interval)(s, value_and_grad, x, d)
+        s = (_zoom_into_interval if s.interval_found else _search_interval)(s, value_and_grad, x, d, dot)
         if s.failed:
             s = _try_safe_step(s)
     return s
 
 
-def step(x, state: LBFGSState, value_and_grad: Callable):
-    """One L-BFGS step: ``(x_next, value at x, state)``.
+def step(x, state: LBFGSState, value_and_grad: Callable, dot=None):
+    """One L-BFGS step: ``(x_next, value at x, state)``; ``dot``: the inner product (default ``torch.dot``).
 
     ``value_and_grad(x) -> (scalar tensor, flat gradient)``.  The value and
     gradient at ``x`` are the ones the last line search ended on, unless that
@@ -305,8 +313,8 @@ def step(x, state: LBFGSState, value_and_grad: Callable):
     else:
         value, grad = value_and_grad(x)
         value = float(value)
-    precond, state = scale_by_lbfgs(grad, state, x)
+    precond, state = scale_by_lbfgs(grad, state, x, dot)
     d = -precond
-    s = zoom_linesearch(value_and_grad, x, d, value, grad, stepsize_guess=1.0)
+    s = zoom_linesearch(value_and_grad, x, d, value, grad, stepsize_guess=1.0, dot=dot or torch.dot)
     state = replace(state, value=s.value, grad=s.grad, learning_rate=s.stepsize, linesearch_steps=s.count)
     return x + s.stepsize * d, value, state

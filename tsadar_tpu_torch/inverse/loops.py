@@ -12,7 +12,22 @@ its optax name, early stopping, checkpoints and state snapshots).
 
 The optimizers are ``optimizers.optimizer``'s, with optax's arithmetic.  The
 whole lineout batch is one set of [B] parameters, so one step is one forward
-and one backward of the batch; there is no mesh.
+and one backward of the batch.
+
+In a process group (``parallel.dist``; ``torchrun``) ``one_d_loop`` shards the
+lineout batch, as the JAX loop lays it over its mesh (``_fit_mesh``): the
+fitting ranks (``dist.fit_ranks``) each take contiguous rows of the batch and
+of every per-lineout leaf, the loss of those rows is the whole batch's
+(``LossFunction.sharded``), and the fitted rows are gathered on every rank of
+the world.  Adam is elementwise and runs on each rank's rows, with the
+gradients of replicated leaves summed over the ranks; the device L-BFGS takes
+every inner product over all ranks; scipy's minimizer runs on every rank on
+the whole flat vector, whose gradient is gathered in full, so that its
+iterates are the same bits on every rank (checked at the end).  The
+optimizer's decisions (best-so-far, the line search's branches) read global
+values only, so every rank calls the same collectives.  ``pallas_sharded:
+false`` (the JAX loop's plain-XLA guard against a partitioner fault) is
+accepted and logged; the kernels still run: the card has no plain path.
 
 The loops log to the tracker (``utils.mlflow_shim``) what the JAX loops log:
 ``fit_lossfn_init_time`` (the loss function's set-up), ``batch loss`` per
@@ -30,7 +45,8 @@ import time
 import numpy as np
 import torch
 
-from ..core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
+from ..core.params.ts_params import ThomsonParams, get_filter_spec, jax_path, ravel_order
+from ..parallel import dist as par
 from ..utils import mlflow_shim as mlflow
 from ..utils.console import log_info
 from ..utils.process.batches import angular_batch, to_numpy
@@ -59,7 +75,36 @@ def _slice_batch(all_data, rows):
     }
 
 
-def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None):
+def _shard(config, ts_params, batch, ranks):
+    """(parameters, batch, leaf mask) of this rank's rows; the whole of both, and no mask, without ``ranks``."""
+    if ranks is None:
+        return ts_params, batch, None
+    local, mask = par.shard_params(config, ts_params, ranks)
+    return local, par.shard_batch(batch, ranks), mask
+
+
+def _replicated(trainable, ts_params, mask):
+    """Which of the ``trainable`` leaves (in order) every rank holds whole (none without a mask)."""
+    if mask is None:
+        return [False] * len(trainable)
+    names = {jax_path(n): n for n, _ in ts_params.named_parameters()}
+    return [not mask[names[k]] for k in trainable]
+
+
+def _summed_grads(grads, replicated, ranks):
+    """``grads`` (a list) with those of the replicated leaves summed over the ranks."""
+    if ranks is None or not any(replicated):
+        return grads
+    summed = iter(par.allreduce_grads([g for g, r in zip(grads, replicated) if r], ranks))
+    return [next(summed) if r else g for g, r in zip(grads, replicated)]
+
+
+def _unshard(local, ts_params, ranks, mask):
+    """The whole batch's parameters on every fitting rank: ``ts_params`` with every rank's rows of ``local``."""
+    return local if ranks is None else par.unshard_params(local, ts_params, ranks, mask)
+
+
+def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None, ranks=None):
     """Adam epochs over one lineout batch: ``(best loss, best parameters)``.
 
     The semantics of the JAX loop: the pre-update loss is credited to the
@@ -80,18 +125,25 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
     optimizer's set-up), ``fit_first_dispatch_time`` (the first step, read
     back: the kernels' loading, and their build where none is cached, falls
     in it) and, with ``per_lineout``, ``fit_final_loss_time``.
+
+    With ``ranks`` (``parallel.dist.Ranks``) this rank fits its rows of the
+    batch: the loss and best-so-far are the whole batch's, ``per_lineout``
+    selects by the rank's own rows, and the parameters returned hold every
+    rank's rows.
     """
     t_enter = time.perf_counter()
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
-    ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
-    trainable = get_filter_spec(config["parameters"], ts_params)
-    leaves = list(trainable.values())
+    full = _init_params(config, previous_weights, device=dev, dtype=dtype)
     per_lineout = config["optimizer"].get("track_best", "overall") == "per_lineout"
 
     num_epochs = config["optimizer"]["num_epochs"]
     if num_epochs == 0:
-        return np.inf, ts_params
+        return np.inf, full
 
+    ts_params, batch, mask = _shard(config, full, batch, ranks)
+    trainable = get_filter_spec(config["parameters"], ts_params)
+    leaves = list(trainable.values())
+    replicated = _replicated(trainable, ts_params, mask)
     batch = loss_fn.device_batch(batch)  # once per fit, not per step
     opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"])
     best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
@@ -107,8 +159,9 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
         values = []
         for _ in range(length):
             t_first = time.perf_counter() if done == 0 and not values else None
-            (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
-            for p, g in zip(leaves, grads.values()):
+            with loss_fn.sharded(ranks):
+                (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+            for p, g in zip(leaves, _summed_grads(list(grads.values()), replicated, ranks)):
                 p.grad = g
             opt.step()
             with torch.no_grad():
@@ -135,41 +188,50 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
         if per_lineout:
             # the assembled parameters mix epochs per lineout: report their actual joint loss
             t0 = time.perf_counter()
-            best_loss = float(loss_fn.__loss__(ts_params, batch)[0])
+            with loss_fn.sharded(ranks):
+                best_loss = float(loss_fn.__loss__(ts_params, batch)[0])
             mlflow.log_metrics({"fit_final_loss_time": round(time.perf_counter() - t0, 2)})
     for p in leaves:
         p.grad = None
-    return float(best_loss), ts_params
+    return float(best_loss), _unshard(ts_params, full, ranks, mask)
 
 
-def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None):
+def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None, ranks=None):
     """scipy's minimizer over the flat active parameters of one lineout batch: ``(final loss, parameters)``.
 
     The JAX loop's call as it makes it: ``optimizer.method`` (``l-bfgs-b`` in
     the decks), the gradient from autograd when ``grad_method`` is ``AD``, and
     only ``disp`` and ``maxiter = num_epochs`` as options.  The parameters live
     on the loss's device: each evaluation writes the float64 vector into them
-    and reads the loss and its flat gradient back (``LossFunction.vg_loss``).
+    and reads the loss and its flat gradient back (``_scipy_objective``, as
+    ``LossFunction.vg_loss`` does).
     ``record`` (a dict), if given, gets scipy's ``message``, ``nit``, ``nfev``,
     ``success`` and the seconds of the minimization, one entry a call.
+
+    With ``ranks`` every fitting rank runs scipy on the whole vector: an
+    evaluation writes it into the whole parameters, the rank's rows of them
+    go into its shard, and the shard's gradient is gathered into the whole
+    vector's layout; every rank then sees the same values and gradients, and
+    its iterates are the same bits as rank 0's (checked at the end).
     """
     import scipy.optimize as spopt
 
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
     trainable = get_filter_spec(config["parameters"], ts_params)
-    leaves = [trainable[k] for k in ravel_order(trainable)]
-    batch = loss_fn.device_batch(batch)  # once per fit, not per evaluation
+    order = ravel_order(trainable)
+    leaves = [trainable[k] for k in order]
     ad = config["optimizer"]["grad_method"] == "AD"
     t0 = time.perf_counter()
     res = spopt.minimize(
-        loss_fn.vg_loss if ad else loss_fn.loss,
+        _scipy_objective(config, loss_fn, ts_params, batch, ranks, order, ad),
         ravel(leaves),
-        args=(ts_params, batch),
         method=config["optimizer"]["method"],
         jac=ad,
         options={"disp": config["optimizer"].get("disp", False), "maxiter": config["optimizer"]["num_epochs"]},
     )
+    if ranks is not None and not np.array_equal(par.broadcast_object(np.asarray(res["x"]), src=0), res["x"]):
+        raise RuntimeError("the ranks' scipy iterates parted: the sharded loss or gradient differs between ranks")
     if record is not None:
         for key, val in (("message", str(res.message)), ("nit", int(res.get("nit", -1))), ("nfev", int(res.nfev)),
                          ("success", bool(res.success)), ("seconds", time.perf_counter() - t0)):
@@ -180,7 +242,41 @@ def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, reco
     return float(res["fun"]), ts_params
 
 
-def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None):
+def _scipy_objective(config, loss_fn, ts_params, batch, ranks, order, ad):
+    """scipy's objective: the whole vector in, written into ``ts_params``; the whole batch's loss (and, with
+    ``ad``, the whole flat gradient in ``order``) out.  With ``ranks`` it is evaluated on this rank's rows of
+    ``ts_params``, and every rank gets the same values."""
+    trainable = get_filter_spec(config["parameters"], ts_params)
+    local, local_batch, mask = _shard(config, ts_params, batch, ranks)
+    local_batch = loss_fn.device_batch(local_batch)  # once per fit, not per evaluation
+    local_trainable = get_filter_spec(config["parameters"], local)
+    replicated = _replicated(local_trainable, local, mask)
+    n = config["optimizer"]["batch_size"]
+
+    def write(x):
+        unravel_into(x, [trainable[k] for k in order])
+        if ranks is not None:  # this rank's rows into its shard
+            start, stop = ranks.bounds(n)
+            with torch.no_grad():
+                for k, rep in zip(local_trainable, replicated):
+                    local_trainable[k].copy_(trainable[k] if rep else trainable[k][start:stop])
+
+    def objective(x):
+        write(x)
+        with loss_fn.sharded(ranks):
+            if not ad:
+                with torch.no_grad():
+                    return float(loss_fn.__loss__(local, local_batch)[0])
+            (value, _), grads = loss_fn.value_and_grad(local, local_batch, local_trainable)
+        grads = dict(zip(grads, _summed_grads(list(grads.values()), replicated, ranks)))
+        whole = {k: g if ranks is None or rep else par.gather_points(g, ranks, n)
+                 for (k, g), rep in zip(grads.items(), replicated)}
+        return float(value), ravel([whole[k] for k in order])
+
+    return objective
+
+
+def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None, ranks=None):
     """``num_epochs`` L-BFGS steps over the flat active parameters of one lineout batch: ``(value, parameters)``.
 
     The JAX loop's steps: ``optax.lbfgs()`` with the zoom line search
@@ -192,13 +288,24 @@ def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batc
     (a dict), if given, gets per step the value (``losses``), the loss
     evaluations (``evaluations``) and the step size (``stepsizes``), and the
     seconds of the loop (``seconds``), one entry a call.
+
+    With ``ranks`` the vector holds this rank's rows, and every inner product
+    of the memory and the line search is taken over all ranks
+    (``parallel.dist.global_dot``): the steps are the unsharded ones.
     """
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
-    ts_params = _init_params(config, previous_weights, device=dev, dtype=dtype)
+    full = _init_params(config, previous_weights, device=dev, dtype=dtype)
+    ts_params, batch, mask = _shard(config, full, batch, ranks)
     trainable = get_filter_spec(config["parameters"], ts_params)
     order = ravel_order(trainable)
     leaves = [trainable[k] for k in order]
+    replicated = _replicated({k: trainable[k] for k in order}, ts_params, mask)
     batch = loss_fn.device_batch(batch)  # once per fit, not per evaluation
+    dot = None
+    if ranks is not None:
+        per_row = torch.cat([torch.full((p.numel(),), not r, dtype=torch.bool, device=dev)
+                             for p, r in zip(leaves, replicated)])
+        dot = par.global_dot(per_row, ranks)
     evaluations = 0
 
     def write(x):
@@ -210,15 +317,17 @@ def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batc
         nonlocal evaluations
         evaluations += 1
         write(x)
-        (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
-        return value, torch.cat([grads[k].reshape(-1) for k in order])
+        with loss_fn.sharded(ranks):
+            (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+        grads = _summed_grads([grads[k] for k in order], replicated, ranks)
+        return value, torch.cat([g.reshape(-1) for g in grads])
 
     x = torch.cat([p.detach().reshape(-1) for p in leaves])
     state, value = lbfgs.init(x), np.inf
     t0 = time.perf_counter()
     for _ in range(config["optimizer"]["num_epochs"]):
         evaluations = 0
-        x, value, state = lbfgs.step(x, state, value_and_grad)
+        x, value, state = lbfgs.step(x, state, value_and_grad, dot=dot)
         if record is not None:
             record.setdefault("losses", []).append(value)
             record.setdefault("evaluations", []).append(evaluations)
@@ -228,7 +337,7 @@ def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batc
     write(x)
     for p in leaves:
         p.grad = None
-    return float(value), ts_params
+    return float(value), _unshard(ts_params, full, ranks, mask)
 
 
 def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dtype=None, record=None):
@@ -236,26 +345,45 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
 
     ``method: adam`` and ``lbfgs`` share one loss function over the batches; a
     scipy method makes a fresh one per batch, as the JAX loop does, and returns
-    the last.  ``record`` (a dict) goes to ``_1d_scipy_loop_`` or
-    ``_1d_device_lbfgs_loop_``.
+    the last.  ``record`` (a dict) goes to the batch's loop (``_1d_adam_loop_``,
+    ``_1d_scipy_loop_`` or ``_1d_device_lbfgs_loop_``).
+
+    In a process group every rank of the world calls it: the fitting ranks
+    (``parallel.dist.fit_group``) share each batch, and every rank returns the
+    whole batch's parameters and loss (the ranks past the fitting ones
+    receive them from rank 0).
     """
     method = config["optimizer"]["method"]
     bs = config["optimizer"]["batch_size"]
     t0 = time.perf_counter()
     loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
     mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t0, 2)})
+    ranks = par.fit_group(config, device)
+    if ranks is not None:
+        log_info(f"lineout batch data-parallel over {ranks.size} of {par.world_size()} ranks")
+        if not config["optimizer"].get("pallas_sharded", True):
+            log_info("optimizer.pallas_sharded: false has no effect here: each rank runs the kernels on its rows")
+    fits = ranks is None or ranks.member
 
     batch_indices = np.reshape(batch_indices, (-1, bs))
     all_weights, overall_loss, previous_weights = [], 0.0, None
     for i_batch in range(num_batches):
         batch = _slice_batch(all_data, batch_indices[i_batch])
-        if method == "adam":
-            best_loss, best_weights = _1d_adam_loop_(config, loss_fn, previous_weights, batch)
+        on = ranks if fits else None
+        if not fits:  # no lineouts here: the structure that rank 0's result is received into
+            best_loss = 0.0
+            best_weights = _init_params(config, previous_weights, device=loss_fn.ts_diag.device, dtype=loss_fn.ts_diag.dtype)
+        elif method == "adam":
+            best_loss, best_weights = _1d_adam_loop_(config, loss_fn, previous_weights, batch, record=record, ranks=on)
         elif method == "lbfgs":
-            best_loss, best_weights = _1d_device_lbfgs_loop_(config, loss_fn, previous_weights, batch, record=record)
+            best_loss, best_weights = _1d_device_lbfgs_loop_(config, loss_fn, previous_weights, batch, record=record,
+                                                             ranks=on)
         else:
             loss_fn = LossFunction(config, sa, batch, device=device, dtype=dtype)
-            best_loss, best_weights = _1d_scipy_loop_(config, loss_fn, previous_weights, batch, record=record)
+            best_loss, best_weights = _1d_scipy_loop_(config, loss_fn, previous_weights, batch, record=record, ranks=on)
+        if ranks is not None and ranks.size < par.world_size():
+            par.broadcast_tensors(list(best_weights.state_dict().values()))
+            best_loss = par.broadcast_object(best_loss)
         all_weights.append(best_weights)
         mlflow.log_metrics({"batch loss": float(best_loss)}, step=i_batch)
         overall_loss += best_loss
@@ -335,6 +463,12 @@ def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None)
     epoch (its step the epoch) and ``fit_first_dispatch_time`` (the first
     chunk, read back).  ``record`` (a dict), if given, gets ``losses`` (every
     counted epoch), ``chunk_seconds``, ``chunk_steps`` and ``start_epoch``.
+
+    In a process group every rank runs this loop on the same replicated
+    parameters (the 2V form factor may split its points between them,
+    ``other.shard_2v_points``): the losses, and so the stop rules and the
+    optimizer's state, are the same on every rank, and rank 0 writes the
+    checkpoints.
     """
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
@@ -400,8 +534,9 @@ def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None)
             if hits:
                 snap = _unnormed_snapshot(config, ts_params, best)
                 state_weights.update((e, snap) for e in hits)
-        # no checkpoint past an early stop: a resume would go on with a fit that has ended
-        if ckpt_dir and not stop and any(e % ckpt_freq == 0 for e in counted):
+        # no checkpoint past an early stop: a resume would go on with a fit that has ended; in a process group the
+        # ranks' states are the same, and rank 0 writes them
+        if ckpt_dir and not stop and any(e % ckpt_freq == 0 for e in counted) and mlflow.writer():
             save_checkpoint(ckpt_dir, trainable, opt, i_epoch + n_counted - 1)
         if record is not None:
             record.setdefault("losses", []).extend(losses[:n_counted])

@@ -24,8 +24,19 @@ sigma loss ``_loss_for_hess_fn_`` over that vector, by a second backward pass
 (autograd of autograd): they run on CPU float64 parameters inside
 ``interp.plain_forms()``, as the JAX package's Hessian runs with its Pallas
 kernels disabled.
+
+Inside ``sharded(ranks)`` (a 1D fit whose lineout batch is split between
+ranks, ``parallel.dist``) the loss of each rank's rows is the loss of the
+whole batch: the masked means' numerators and counts are summed over the
+ranks (their shards hold different counts), and so are the penalties' sums
+over per-lineout leaves before their non-linear steps (``fe_decrease_strict``'s
+tan, the moment losses' means): a sharded fit's parameters are batched, one
+entry a lineout in every leaf of the penalties.  The row losses stay the
+rank's own.  ``y_norm`` comes from the batch the loss
+is built with: the whole batch's.
 """
 
+import contextlib
 import math
 
 import numpy as np
@@ -34,15 +45,23 @@ import torch
 from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params.distributions import act
 from ..core.params.ts_params import get_filter_spec, ravel_order
+from ..parallel import dist as par
 from ..utils.vector_tools import rotate_edf
 
 
-def _masked_reduce(err, mask, reduce_func):
-    """``reduce_func`` over the masked entries (what ``nanmean`` gave the reference)."""
-    if reduce_func == "mean":
-        return torch.sum(torch.where(mask, err, 0.0)) / torch.clamp(torch.sum(mask), min=1)
-    if reduce_func == "sum":
-        return torch.sum(torch.where(mask, err, 0.0))
+def _masked_reduce(err, mask, reduce_func, ranks=None):
+    """``reduce_func`` over the masked entries (what ``nanmean`` gave the reference); with ``ranks``, over the
+    entries of every rank's rows for "mean" and "sum"."""
+    if reduce_func in ("mean", "sum"):
+        num = torch.sum(torch.where(mask, err, 0.0))
+        if ranks is not None:
+            num = par.sum_replicated(num, ranks)
+        if reduce_func == "sum":
+            return num
+        den = torch.sum(mask)  # the mask's own entries: an angular [L] mask counts once (JAX's arithmetic)
+        if ranks is not None:  # as the working dtype, which every backend reduces (the count is exact in it)
+            den = par.sum_replicated(den.to(err.dtype), ranks)
+        return num / torch.clamp(den, min=1)
     if reduce_func == "mean_axis1":
         # an unbatched [L] spectrum is one row, so callers can always index a lineout axis
         bmask = torch.atleast_2d(torch.broadcast_to(mask, err.shape))
@@ -66,6 +85,17 @@ class LossFunction:
         self.ts_diag = ThomsonScatteringDiagnostic(cfg, scattering_angles, device=device, dtype=dtype, mode_2v=mode_2v,
                                                    shard_2v_points=cfg["other"].get("shard_2v_points", False))
         self.scattering_angles, self._dummy_batch, self._host_f64 = scattering_angles, dummy_batch, None
+        self.ranks = None  # inside sharded(): the ranks that share the lineout batch
+
+    @contextlib.contextmanager
+    def sharded(self, ranks):
+        """Inside the block the loss of this rank's rows is the whole batch's (``ranks``: ``parallel.dist.Ranks``;
+        None leaves the loss as it is)."""
+        prev, self.ranks = self.ranks, ranks
+        try:
+            yield self
+        finally:
+            self.ranks = prev
 
     def host_f64(self):
         """This loss on the CPU in float64 (itself if it is that already): the sigma-Hessian's."""
@@ -113,21 +143,21 @@ class LossFunction:
             mask = ((lamAxisI > fr["iaw_min"]) & (lamAxisI < fr["iaw_cf_min"])) | (
                 (lamAxisI > fr["iaw_cf_max"]) & (lamAxisI < fr["iaw_max"])
             )
-            i_error = i_error + _masked_reduce(err, mask, reduce_func)
+            i_error = i_error + _masked_reduce(err, mask, reduce_func, self.ranks)
             i_row = i_row + _masked_reduce(err, mask, "mean_axis1")
             sqdev["ion"] = torch.where(mask, err, 0.0)
 
         if opts["fit_EPWb"]:
             err = self.loss_functionals(e_data, ThryE, uncert[1], method=method)
             mask = (lamAxisE > fr["blue_min"]) & (lamAxisE < fr["blue_max"])
-            e_error = e_error + _masked_reduce(err, mask, reduce_func)
+            e_error = e_error + _masked_reduce(err, mask, reduce_func, self.ranks)
             e_row = e_row + _masked_reduce(err, mask, "mean_axis1")
             sqdev["ele"] = sqdev["ele"] + torch.where(mask, err, 0.0)
 
         if opts["fit_EPWr"]:
             err = self.loss_functionals(e_data, ThryE, uncert[1], method=method)
             mask = (lamAxisE > fr["red_min"]) & (lamAxisE < fr["red_max"])
-            e_error = e_error + _masked_reduce(err, mask, reduce_func)
+            e_error = e_error + _masked_reduce(err, mask, reduce_func, self.ranks)
             e_row = e_row + _masked_reduce(err, mask, "mean_axis1")
             if opts["fit_EPWb"]:
                 e_error = e_error * 0.5
@@ -257,9 +287,19 @@ class LossFunction:
         if fe_cfg.get("fe_decrease_strict", False) and fe_cfg.get("dim", 1) == 1:
             v, fe = params["electron"]["v"], params["electron"]["fe"]
             gradfe = torch.sign(v[..., 1:]) * torch.diff(fe, dim=-1)
-            vals = torch.sum(torch.where(gradfe > 0.0, gradfe, 0.0))
+            vals = self._summed(torch.sum(torch.where(gradfe > 0.0, gradfe, 0.0)))  # a 1V EDF is per lineout
             total = total + torch.tan(torch.clamp(vals, max=math.pi / 2 - 1e-3))
         return total
+
+    def _summed(self, x):
+        """``x``, a sum over this rank's rows, summed over the ranks that share the batch (as it is unsharded)."""
+        return x if self.ranks is None else par.sum_replicated(x, self.ranks)
+
+    def _row_mean(self, x):
+        """The mean of the per-lineout values ``x`` over the whole batch."""
+        if self.ranks is None:
+            return torch.mean(x)
+        return self._summed(torch.sum(x)) / self._summed(x.new_tensor(float(x.numel())))
 
     def bound_penalty(self, ts_module):
         """Log-based out-of-bounds penalty on the normalized scalar parameters.
@@ -275,7 +315,7 @@ class LossFunction:
             for name, v in g.normed.items():
                 w = act(v, g.activated[name])
                 total = total + torch.sum(torch.clamp(torch.log(torch.abs(w - 0.5) + 0.5), min=0.0))
-        return total
+        return self._summed(total)  # a sharded fit's groups are batched: every leaf holds one entry a lineout
 
     def moment_penalties(self, params):
         """(density, temperature, momentum) moment losses of the physical EDF.
@@ -295,9 +335,9 @@ class LossFunction:
             momentum_loss = torch.square(torch.sum(fe * v[:, None]) * dv**2) + torch.square(torch.sum(fe * v[None, :]) * dv**2)
             return density_loss, temperature_loss, momentum_loss
         dv = (v[..., 1] - v[..., 0])[..., None]
-        density_loss = torch.mean(torch.square(1.0 - torch.sum(fe * dv, dim=-1)))
-        temperature_loss = torch.mean(torch.square(1.0 - torch.sum(fe * v**2 * dv, dim=-1)))
-        momentum_loss = torch.mean(torch.square(torch.sum(fe * v * dv, dim=-1)))
+        density_loss = self._row_mean(torch.square(1.0 - torch.sum(fe * dv, dim=-1)))
+        temperature_loss = self._row_mean(torch.square(1.0 - torch.sum(fe * v**2 * dv, dim=-1)))
+        momentum_loss = self._row_mean(torch.square(torch.sum(fe * v * dv, dim=-1)))
         return density_loss, temperature_loss, momentum_loss
 
 

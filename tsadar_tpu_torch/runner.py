@@ -9,11 +9,16 @@ hosted app's fit from the ``config.yaml`` and shot files stored with its run.
 Every entry point runs on the card unless ``device="cpu"`` is given.  Two
 settings of the JAX package change form: ``other.profile: true`` records a
 ``torch.profiler`` trace of the mode, logged as the artifact directory
-``torch_trace``; ``TSADAR_MULTIHOST`` (the JAX package's multi-host TPU
-slices) raises, since the port runs on one GPU (ROADMAP.md §1 item 8).
-``_configure_jax`` has no counterpart.  A deck that fails validation and a
-device the port cannot reach raise before a run is registered (the JAX
-package registers first).
+``torch_trace``; ``TSADAR_MULTIHOST`` (the JAX package's hook that calls
+``jax.distributed.initialize()`` for multi-host TPU slices) starts the
+process group (``parallel.dist``, from ``torchrun``'s variables) at the start
+of an entry point, before any work, once; a ``torchrun`` launch of more than
+one rank (``WORLD_SIZE > 1``) starts it too.  In a process group rank 0
+registers the run, reads its decks and writes every file; the other ranks
+share the fit and end with it, and the group is destroyed as the entry point
+returns or raises.  ``_configure_jax`` has no counterpart.  A deck that fails
+validation and a device the port cannot reach raise before a run is
+registered (the JAX package registers first).
 """
 
 import contextlib
@@ -27,6 +32,7 @@ import yaml
 from .device import resolve_device
 from .forward import calc_series
 from .inverse import fitter
+from .parallel import dist as par
 from .utils import mlflow_shim as mlflow
 from .utils.config import merge_configs
 from .utils.console import log_info
@@ -77,13 +83,16 @@ def _check_mode(mode):
 
 
 def _check_start(mode, device):
-    """Raise, before any work is done, for a mode that does not exist, a multi-host run and a device the
-    port cannot reach."""
+    """Raise, before any work is done, for a mode that does not exist and a device the port cannot reach."""
     _check_mode(mode)
-    if os.environ.get("TSADAR_MULTIHOST"):
-        raise NotImplementedError("multi-host runs (TSADAR_MULTIHOST) are not ported: the port runs on one GPU "
-                                  "(ROADMAP.md §1 item 8)")
     resolve_device(device)
+
+
+def _on_rank0(fn, *args):
+    """``fn(*args)`` on rank 0, its result on every rank of a process group (decks, run ids)."""
+    if not par.initialized():
+        return fn(*args)
+    return par.broadcast_object(fn(*args) if par.rank() == 0 else None)
 
 
 def run(cfg_path, mode, device=None, record=None):
@@ -94,12 +103,13 @@ def run(cfg_path, mode, device=None, record=None):
     ``entry_seconds``).
     """
     _check_start(mode, device)
-    all_configs = _load_decks(cfg_path)
-    config = merge_configs(all_configs["defaults"], all_configs["inputs"])
-    validate_config(config, mode=mode)
-    run_id = _register(all_configs)
-    with mlflow.start_run(run_id=run_id, log_system_metrics=True):
-        _run_(config, mode=mode, device=device, record=record)
+    with par.process_group(device):
+        all_configs = _on_rank0(_load_decks, cfg_path)
+        config = merge_configs(all_configs["defaults"], all_configs["inputs"])
+        validate_config(config, mode=mode)
+        run_id = _on_rank0(_register, all_configs)
+        with mlflow.start_run(run_id=run_id, log_system_metrics=True):
+            _run_(config, mode=mode, device=device, record=record)
     return run_id
 
 
@@ -131,29 +141,40 @@ def _run_(config, mode="fit", device=None, record=None):
     mlflow.set_tag("status", "completed")
 
 
+def _stored_decks(mlflow_run):
+    """``{"defaults": ..., "inputs": ...}`` from the artifacts of an open run."""
+    artifacts = os.path.join(getattr(mlflow_run, "run_dir", ""), "artifacts")
+    all_configs = {}
+    for k in ("defaults", "inputs"):
+        with open(os.path.join(artifacts, f"{k}.yaml")) as fi:
+            all_configs[k] = yaml.safe_load(fi)
+    return all_configs
+
+
 def run_job(run_id, mode, nested, device=None):
     """Resume a queued run whose decks are stored in its artifacts."""
     _check_start(mode, device)
-    with mlflow.start_run(run_id=run_id, nested=nested) as run:
-        artifacts = os.path.join(getattr(run, "run_dir", ""), "artifacts")
-        all_configs = {}
-        for k in ("defaults", "inputs"):
-            with open(os.path.join(artifacts, f"{k}.yaml")) as fi:
-                all_configs[k] = yaml.safe_load(fi)
+    with par.process_group(device), mlflow.start_run(run_id=run_id, nested=nested) as run:
+        all_configs = _on_rank0(_stored_decks, run)
         config = merge_configs(all_configs["defaults"], all_configs["inputs"])
         validate_config(config, mode=mode)
         _run_(config, mode, device=device)
 
 
+def _app_config(mlflow_run):
+    """The hosted app's config stored in an open run's artifacts, its shot files named by their local paths."""
+    artifacts = os.path.join(getattr(mlflow_run, "run_dir", ""), "artifacts")
+    with open(os.path.join(artifacts, "config.yaml")) as fi:
+        config = yaml.safe_load(fi)
+    for spec in ("epw", "iaw"):
+        if config["data"]["filenames"].get(spec) is not None:
+            config["data"]["filenames"][f"{spec}-local"] = os.path.join(artifacts, config["data"]["filenames"][spec])
+    return config
+
+
 def run_for_app(run_id, device=None):
     """The hosted app's fit: the config and the shot files stored in the run's artifacts, the run's id."""
     _check_start("fit", device)
-    with mlflow.start_run(run_id=run_id, log_system_metrics=True) as mlflow_run:
-        artifacts = os.path.join(getattr(mlflow_run, "run_dir", ""), "artifacts")
-        with open(os.path.join(artifacts, "config.yaml")) as fi:
-            config = yaml.safe_load(fi)
-        for spec in ("epw", "iaw"):
-            if config["data"]["filenames"].get(spec) is not None:
-                config["data"]["filenames"][f"{spec}-local"] = os.path.join(artifacts, config["data"]["filenames"][spec])
-        _run_(config, mode="fit", device=device)
-    return mlflow_run.info.run_id
+    with par.process_group(device), mlflow.start_run(run_id=run_id, log_system_metrics=True) as mlflow_run:
+        _run_(_on_rank0(_app_config, mlflow_run), mode="fit", device=device)
+    return run_id if mlflow_run is None else mlflow_run.info.run_id

@@ -11,6 +11,11 @@ run puts the outer run's state back when it ends.
 The state is module-global.  Calls made while no run is open are dropped
 (the JAX package keeps them in memory, where no file ever shows them), so
 nothing logged between two runs of one process reaches either.
+
+In a process group rank 0 keeps the run and writes its files (``writer``):
+the other ranks open no run, their calls are dropped, and they see no open
+run.  The entry points, the fit's postprocess and its checkpoints read the
+same rule.
 """
 
 import contextlib
@@ -19,6 +24,8 @@ import os
 import shutil
 import time
 import uuid
+
+from ..parallel import dist as par
 
 try:  # pragma: no cover - taken only where mlflow is installed
     import mlflow as _mlflow
@@ -29,6 +36,11 @@ except ImportError:
     HAVE_MLFLOW = False
 
 _state = {"experiment": "default", "run_dir": None, "metrics": {}, "params": {}, "tags": {}}
+
+
+def writer():
+    """Whether this process keeps the run and writes its files: a process outside a process group, or its rank 0."""
+    return par.rank() == 0
 
 
 def _root():
@@ -64,6 +76,9 @@ def _find_run_dir(run_id):
 
 @contextlib.contextmanager
 def start_run(run_name=None, run_id=None, nested=False, log_system_metrics=False, **kw):
+    if not writer():
+        yield None
+        return
     if HAVE_MLFLOW:
         with _mlflow.start_run(
             run_name=run_name, run_id=run_id, nested=nested, log_system_metrics=log_system_metrics, **kw
@@ -103,6 +118,8 @@ def _flush():
 
 
 def log_metrics(metrics, step=0, **kw):
+    if not writer():
+        return
     if HAVE_MLFLOW:
         return _mlflow.log_metrics(metrics, step=step, **kw)
     if _state["run_dir"] is None:
@@ -117,6 +134,8 @@ def log_metric(key, value, step=0, **kw):
 
 
 def log_params(params, **kw):
+    if not writer():
+        return
     if HAVE_MLFLOW:
         return _mlflow.log_params(params, **kw)
     if _state["run_dir"] is None:
@@ -126,6 +145,8 @@ def log_params(params, **kw):
 
 
 def set_tag(key, value):
+    if not writer():
+        return
     if HAVE_MLFLOW:
         return _mlflow.set_tag(key, value)
     if _state["run_dir"] is None:
@@ -135,6 +156,8 @@ def set_tag(key, value):
 
 
 def log_artifact(path, artifact_path=None):
+    if not writer():
+        return
     if HAVE_MLFLOW:
         return _mlflow.log_artifact(path, artifact_path)
     if _state["run_dir"] is None:
@@ -145,6 +168,8 @@ def log_artifact(path, artifact_path=None):
 
 
 def log_artifacts(path, artifact_path=None):
+    if not writer():
+        return
     if HAVE_MLFLOW:
         return _mlflow.log_artifacts(path, artifact_path)
     if _state["run_dir"] is None:
@@ -155,6 +180,8 @@ def log_artifacts(path, artifact_path=None):
 
 def active_run():
     """The open run, or None: files logged outside a run are dropped, so their writers need not run."""
+    if not writer():
+        return None
     if HAVE_MLFLOW:
         return _mlflow.active_run()
     if _state["run_dir"] is None:
