@@ -94,6 +94,12 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    ARTS 1V deck's real window (``arts_breakdown``), the optax optimizers ported
    last on the ARTS 1V real-data fit (``arts_optimizers``) and
    ``python -m tsadar_tpu_torch.run_bo`` in a child process (``run_bo``);
+   Then the fit of shot 112059 whose lineouts and fit windows come from the feature detector
+   (``feature_detector.estimate_lineouts_epw`` on the imaging deck, batches of 20, adam for 30 epochs) through
+   ``runner.run`` (``detector_112059_fit``: the detected windows and 60 pixels equal to the JAX package's, the
+   detector's host seconds, the first batch's loss and gradient against the CPU float64 path, K1-K6 and both K9
+   modes once a step at B = 20, each batch's loss falling, every fitted value finite and in its bounds, 60 rows of
+   ``learned_parameters.csv`` at the detected pixels, ms a step);
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -2571,6 +2577,132 @@ def cli_whole_shot_fit(wrappers, smi):
     return launches
 
 
+# The detected-window fit of shot 112059: what the JAX package's prepare_data detects on this deck
+# (tests/test_torch_feature_detector.py::test_prepare_data_detects_the_112059_windows holds these to it and to the
+# port on the CPU) -- the lineout range on the EPW CCD's x axis, the blue and red fit windows [nm] to the digits
+# given, and the pixels: 61 detected at skip 5, trimmed to 60 for whole batches of 20
+DETECTOR_WINDOWS = {"start": -1044.540333, "end": 504.719667, "blue_min": 583.351905, "blue_max": 603.572905,
+                    "red_min": 433.771905, "red_max": 459.809905}
+DETECTOR_WINDOW_TOL = 5e-7
+DETECTOR_PIXELS = list(range(340, 640, 5))
+DETECTOR_OPTIMIZER = {"method": "adam", "num_epochs": 30, "batch_size": 20}
+
+
+def detector_decks():
+    """(defaults, inputs) of the detected-window deck: the main deck with test_imaging_data.py's changes as
+    ``imaging_112059_fit`` sets them (shot 112059, the pixel lineouts 500:510:5 that the detector replaces, adam
+    for 30 epochs, ``detailed_breakdown``), ``feature_detector.estimate_lineouts_epw`` with the deck's buffers of
+    20, batches of 20, no sigmas."""
+    defaults, inputs = main_deck_pair()
+    inputs.setdefault("data", {}).update(shotnum=112059, lineouts={"type": "pixel", "start": 500, "end": 510, "skip": 5})
+    inputs.setdefault("optimizer", {}).update(DETECTOR_OPTIMIZER)
+    inputs["feature_detector"]["estimate_lineouts_epw"] = True
+    inputs.setdefault("plotting", {})["detailed_breakdown"] = True
+    inputs["other"]["calc_sigmas"] = False
+    return defaults, inputs
+
+
+def fitted_bounds(cfg):
+    """{column of learned_parameters.csv: (lb, ub)} of every active parameter of a 1V deck."""
+    bounds = {}
+    for species, params in cfg["parameters"].items():
+        for name, spec in params.items():
+            if not (isinstance(spec, dict) and spec.get("active")):
+                continue
+            if name == "fe":
+                bounds |= {f"{k}_{species}": (v["lb"], v["ub"]) for k, v in spec.get("params", {}).items()
+                           if isinstance(v, dict) and "lb" in v}
+            elif "lb" in spec:
+                bounds[f"{name}_{species}"] = (spec["lb"], spec["ub"])
+    return bounds
+
+
+def detector_112059_fit(wrappers, smi):
+    """The fit of shot 112059 whose lineouts and fit windows come from the feature detector, through
+    ``runner.run`` from a deck directory (``detector_decks``).  The detector's windows and pixels on this machine
+    against the JAX package's (DETECTOR_WINDOWS, DETECTOR_PIXELS; its host seconds inside ``prepare_data``); the
+    first batch of 20's loss and gradient against the CPU float64 plain path, float32's own miss held as such
+    (``real_data_grad_check``); then the run: K1-K6 and both K9 modes once a step (3 batches x 30 epochs), the
+    forward kernels once more a batch for the postprocess's array loss and K1, K3, K9 once more a batch for its
+    breakdown; each batch's loss falling; every fitted value finite and inside its bounds; 60 rows of
+    ``learned_parameters.csv`` at the detected pixels; ms a step."""
+    import torch
+
+    from tsadar_tpu_torch import runner
+    from tsadar_tpu_torch.inverse.fitter import _lineout_selection
+    from tsadar_tpu_torch.utils.config import merge_configs
+    from tsadar_tpu_torch.utils.process import prepare
+
+    decks = detector_decks()
+    cfg = _lineout_selection(merge_configs(*copy.deepcopy(decks)))
+    detector_seconds, first_guess = [], prepare.first_guess
+
+    def timed_first_guess(*args):
+        t0 = time.perf_counter()
+        try:
+            return first_guess(*args)
+        finally:
+            detector_seconds.append(time.perf_counter() - t0)
+
+    prepare.first_guess = timed_first_guess
+    try:
+        t0 = time.perf_counter()
+        all_data, sa, _ = prepare.prepare_data(cfg, cfg["data"]["shotnum"])
+        prepare_seconds = time.perf_counter() - t0
+    finally:
+        prepare.first_guess = first_guess
+    lineouts, fit_rng = cfg["data"]["lineouts"], cfg["data"]["fit_rng"]
+    windows = {"start": lineouts["start"], "end": lineouts["end"], **{k: fit_rng[k] for k in ("blue_min", "blue_max", "red_min", "red_max")}}
+    window_misses = {k: abs(float(windows[k]) - v) for k, v in DETECTOR_WINDOWS.items()}
+    detected = {"windows": all(m <= DETECTOR_WINDOW_TOL for m in window_misses.values()),
+                "pixels": list(lineouts["val"]) == DETECTOR_PIXELS}
+    emit({"phase": "detector_112059_windows", "windows": {k: float(v) for k, v in windows.items()}, "pinned": DETECTOR_WINDOWS,
+          "misses": window_misses, "tol": DETECTOR_WINDOW_TOL, "pixels": [int(p) for p in lineouts["val"]],
+          "detector_host_seconds": detector_seconds[0], "prepare_host_seconds": prepare_seconds, "checks": detected,
+          "ok": all(detected.values())})
+    if not all(detected.values()):
+        raise RuntimeError(f"detector_112059_fit: the detector's output {windows}, pixels {lineouts['val']} is not the "
+                           f"JAX package's {DETECTOR_WINDOWS}, {DETECTOR_PIXELS}")
+    batch_size = DETECTOR_OPTIMIZER["batch_size"]
+    first = DETECTOR_PIXELS[:batch_size]
+    real_data_grad_check(*lineouts_of(cfg, sa, all_data, first), "detector_112059_grad_check", f32_rule=True,
+                         wrappers=wrappers, pixels=first)
+
+    record = {}
+    with tracker_root() as tmp:
+        deck = write_decks(tmp / "detector_112059", *decks)
+        read_and_zero(wrappers)
+        t0 = time.perf_counter()
+        run_id = runner.run(str(deck), "fit", record=record)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_and_zero(wrappers)
+        run_dir, meta = run_of(tmp / "runs", run_id)
+        table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
+    batches, epochs = len(DETECTOR_PIXELS) // batch_size, DETECTOR_OPTIMIZER["num_epochs"]
+    steps = batches * epochs
+    losses = np.asarray(record["adam"]["losses"], float).reshape(batches, epochs)
+    bounds = fitted_bounds(cfg)
+    outside = {k: int(np.sum(~np.isfinite(table[k]) | (table[k] < lb) | (table[k] > ub))) for k, (lb, ub) in bounds.items()}
+    want = {k: (steps + batches * (int(k in FORWARD_KERNELS) + int(k in BREAKDOWN_KERNELS))) * int(k in REAL_FIT_KERNELS)
+            for k in launches}
+    ms_per_step = 1e3 * sum(record["adam"]["chunk_seconds"]) / steps
+    checks = {"rows": len(table["lineout pixel"]) == len(DETECTOR_PIXELS),
+              "pixels": table["lineout pixel"].tolist() == [float(p) for p in DETECTOR_PIXELS],
+              "finite_in_bounds": not any(outside.values()), "loss_falls": bool((losses[:, -1] < losses[:, 0]).all()),
+              "losses_finite": bool(np.isfinite(losses).all()), "launches": launches == want}
+    ok = all(checks.values())
+    emit({"phase": "detector_112059_fit", "lineouts": len(table["lineout pixel"]), "batches": batches, "epochs": epochs,
+          "batch_first_last_loss": [[float(b[0]), float(b[-1])] for b in losses], "fit_loss": metric(meta, "overall loss"),
+          "fitted_median": {k: float(np.median(table[k])) for k in bounds}, "outside_bounds_or_not_finite": outside,
+          "checks": checks, "ms_per_step": ms_per_step, "steps": steps, "detector_host_seconds": detector_seconds[0],
+          "stage_seconds": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")},
+          "seconds": seconds, "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"detector_112059_fit: checks {checks}, outside bounds {outside}, launches {launches} (want {want})")
+    return launches
+
+
 # The ARTS fit through the normal entry point (e2e_arts.py's deck: the ATS image of shot 94475, background slice
 # 94477), the 2V deck's pointwise EDF on the same real image, and the multiplexed two-shot loss (shots 94475, 94477)
 ARTS_1V_EPOCHS = 200
@@ -3893,6 +4025,10 @@ def main():
     path_launches["arts_breakdown"] = arts_breakdown(wrappers, smi)
     path_launches["arts_optimizers"] = arts_optimizers(wrappers, smi)
     path_launches["run_bo"] = run_bo_subprocess(wrappers, smi)
+
+    # 4g. this slice's path: the fit of shot 112059 whose lineouts and fit windows the feature detector finds, through
+    # runner.run (the detector's output against the JAX package's, loss and gradient, K1-K6 and both K9 modes at B = 20)
+    path_launches["detector_112059_fit"] = detector_112059_fit(wrappers, smi)
 
     with torch.no_grad():
         # 5. the first slice's path: the whole-shot forward of synthetic spectra through the kernels

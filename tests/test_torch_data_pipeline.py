@@ -10,8 +10,9 @@ background shot, a "Shot" background, the ARTS "Fit" gain model), and
 shot) on the whole-shot deck at 128 lineouts (pixels 300:812:4):
 the lineouts, their amplitudes and noise, the scattering angles, the axes, and
 the config fields ``prepare_data`` writes (``npts``, ``lamrangE``,
-``lamrangI``, ``widIRF``, ``CCDsize``).  The options that need ``cv2`` or
-matplotlib raise in the port.
+``lamrangI``, ``widIRF``, ``CCDsize``).  The raw-data visualizer (matplotlib)
+is logged and skipped; the feature detector has its own tests
+(``tests/test_torch_feature_detector.py``).
 
 scipy's Levenberg-Marquardt ``curve_fit`` (1.17) is not deterministic on the
 streak background's two-exponential fit: the model is symmetric under
@@ -193,14 +194,6 @@ def test_prepare_data(prepared):
     assert cfg["other"]["PhysParams"]["widIRF"] == jcfg["other"]["PhysParams"]["widIRF"]
     for key in ("pixelE", "pixelI"):
         _same(cfg["data"]["lineouts"][key], jcfg["data"]["lineouts"][key], key)
-
-
-@pytest.mark.parametrize("option", ["estimate_lineouts_epw"])
-def test_options_needing_cv2_or_matplotlib_raise(option):
-    cfg = _deck(500, 510, 5, 2)
-    cfg["feature_detector"][option] = True
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prepare_data(cfg, 101675)
 
 
 def test_the_visualizer_is_logged_and_skipped(monkeypatch):

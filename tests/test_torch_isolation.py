@@ -54,7 +54,8 @@ def test_importing_the_port_loads_no_jax():
         "from tsadar_tpu_torch.forward import calc_series\n"
         "from tsadar_tpu_torch.utils import artifacts, calibration, console, export, mlflow_shim, ncwriter, schema\n"
         "from tsadar_tpu_torch.utils.data_handling import hdf4, load_ts_data\n"
-        "from tsadar_tpu_torch.utils.process import correct_throughput, evaluate_background, lineouts, prepare, warpcorr\n"
+        "from tsadar_tpu_torch.utils.process import correct_throughput, evaluate_background, feature_detector, lineouts\n"
+        "from tsadar_tpu_torch.utils.process import prepare, warpcorr\n"
         f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(), capture_output=True, text=True,

@@ -6,12 +6,13 @@ throughput-correct, build the shot background, then either extract lineouts
 (angular_full fits). Mutates ``config`` with the derived quantities the fit
 stage reads back (IRF widths, wavelength ranges, npts, lineout pixels).
 
-The CV feature detector (``feature_detector.estimate_lineouts_*``, which
-needs ``cv2`` and changes the lineouts) raises ``NotImplementedError`` here.
-The raw-data visualizer (``data.launch_data_visualizer``) only draws figures
-(matplotlib), which the port leaves out everywhere: it is logged and
-skipped.  The lineout pixels come from ``data.lineouts.val``
-(``inverse.fitter._lineout_selection``).
+With ``feature_detector.estimate_lineouts_iaw`` and/or ``_epw`` the lineout
+range and the fit windows come from the frames (``feature_detector``, which
+reproduces the JAX package's OpenCV detector in numpy and scipy); otherwise
+the lineout pixels come from ``data.lineouts.val``
+(``inverse.fitter._lineout_selection``).  The raw-data visualizer
+(``data.launch_data_visualizer``) only draws figures (matplotlib), which the
+port leaves out everywhere: it is logged and skipped.
 """
 
 import os
@@ -23,6 +24,7 @@ from ..data_handling.load_ts_data import loadData
 from ..calibration import get_calibrations, get_scattering_angles
 from .correct_throughput import correctThroughput
 from .evaluate_background import get_shot_bg
+from .feature_detector import first_guess
 from .lineouts import get_lineouts
 from ..console import log_info
 
@@ -64,14 +66,76 @@ def _block_means_2d(image, row_width, col_width):
     return summed / (row_counts[:, None] * col_counts[None, :])
 
 
-def _check_unported_options(config):
-    """The CV feature detector (``cv2``) is not ported and raises; the raw-data visualizer draws figures only,
-    which the port does not produce: it is logged and skipped."""
-    fd = config.get("feature_detector", {})
-    if fd.get("estimate_lineouts_iaw", False) or fd.get("estimate_lineouts_epw", False):
-        raise NotImplementedError("the lineout feature detector (feature_detector.estimate_lineouts_*) is not ported")
+def _log_skipped_visualizer(config):
+    """The raw-data visualizer draws figures only, which the port does not produce: it is logged and skipped."""
     if config["data"].get("launch_data_visualizer", False):
         log_info("data.launch_data_visualizer: the port produces no figures; the raw-data visualizer is skipped")
+
+
+def _axis_value(axis, index, what, buffer_key=None):
+    """``axis[index]`` as numpy indexes it (a negative index counts from the end); an index outside the axis
+    raises ``IndexError``, as the JAX package's indexing does, naming the detector's box (and ``buffer_key``'s
+    buffer) as the cause."""
+    if not -len(axis) <= index < len(axis):
+        cause = (f"the box plus feature_detector.buffer.{buffer_key}" if buffer_key
+                 else "the EPW box's start less the IAW box's")
+        raise IndexError(f"the feature detector's {what} at pixel {index} ({cause}) runs past the "
+                         f"{len(axis)}-pixel axis")
+    return axis[index]
+
+
+def _apply_feature_detector(config, elecData, ionData, all_axes):
+    """The detector's lineout range and fit windows written into ``config`` as axis values, in the JAX package's
+    three modes (IAW only, EPW only, both); returns the detected (start, end) pixels, or None with detection off."""
+    fd = config.get("feature_detector", {"estimate_lineouts_iaw": False, "estimate_lineouts_epw": False})
+    want_iaw, want_epw = fd["estimate_lineouts_iaw"], fd["estimate_lineouts_epw"]
+    if not (want_iaw or want_epw):
+        return None
+
+    fit_rng = config["data"]["fit_rng"]
+    guess = first_guess(elecData, ionData, config)
+
+    if want_iaw and want_epw:
+        (end, start, iaw_cf_min, iaw_cf_max, iaw_max, iaw_min,
+         ion_t0_shift, blue_min, blue_max, red_min, red_max) = guess
+        config["data"]["ion_t0_shift"] = _axis_value(all_axes["iaw_x"], ion_t0_shift, "ion t0 shift")
+        lineout_axis = all_axes["epw_x"]
+    elif want_iaw:
+        end, start, iaw_cf_min, iaw_cf_max, iaw_max, iaw_min = guess
+        blue_min = blue_max = red_min = red_max = None
+        lineout_axis = all_axes["iaw_x"]
+    else:
+        end, start, blue_min, blue_max, red_min, red_max = guess
+        iaw_min = iaw_max = iaw_cf_min = iaw_cf_max = None
+        lineout_axis = all_axes["epw_x"]
+
+    config["data"]["lineouts"]["start"] = _axis_value(lineout_axis, start, "lineout start", "lineout_start")
+    config["data"]["lineouts"]["end"] = _axis_value(lineout_axis, end, "lineout end", "lineout_end")
+    if iaw_min is not None:
+        iaw_y = all_axes["iaw_y"]
+        fit_rng["iaw_min"] = _axis_value(iaw_y, iaw_min, "IAW window start", "spectral_start")
+        fit_rng["iaw_max"] = _axis_value(iaw_y, iaw_max, "IAW window end", "spectral_end")
+        fit_rng["iaw_cf_min"] = _axis_value(iaw_y, int(iaw_cf_min), "IAW central-feature start", "spectral_start")
+        fit_rng["iaw_cf_max"] = _axis_value(iaw_y, int(iaw_cf_max), "IAW central-feature end", "spectral_end")
+    if blue_min is not None:
+        epw_y = all_axes["epw_y"]
+        fit_rng["blue_min"] = _axis_value(epw_y, blue_min, "blue window start", "spectral_start")
+        fit_rng["blue_max"] = _axis_value(epw_y, blue_max, "blue window end", "spectral_end")
+        fit_rng["red_min"] = _axis_value(epw_y, red_min, "red window start", "spectral_start")
+        fit_rng["red_max"] = _axis_value(epw_y, red_max, "red window end", "spectral_end")
+    return int(start), int(end)
+
+
+def _resolve_lineout_values(config, detected):
+    """``lineouts.val`` from the detected pixels (``type: pixel``) or from the axis values the detector wrote
+    (every other type), at the deck's skip."""
+    lineouts = config["data"]["lineouts"]
+    if detected is not None:
+        if lineouts["type"] == "pixel":
+            start, end = detected
+        else:
+            start, end = int(lineouts["start"]), int(lineouts["end"])
+        lineouts["val"] = list(range(start, end, int(lineouts["skip"])))
 
 
 def _trim_to_batch_multiple(config):
@@ -119,7 +183,7 @@ def prepare_data(config: Dict, shotNum: int):
     """Returns (all_data, sa, all_axes); mutates config with derived quantities."""
     from .warpcorr import reset_fiducial_cache
 
-    _check_unported_options(config)
+    _log_skipped_visualizer(config)
 
     # fiducial-map reuse (signal frame -> tracerless background frame) is
     # scoped to THIS shot's loads; see warpcorr._FIDUCIAL_MAPS_CACHE
@@ -152,6 +216,8 @@ def prepare_data(config: Dict, shotNum: int):
 
     BGele, BGion = get_shot_bg(config, shotNum, axisyE, elecData)
 
+    detected = _apply_feature_detector(config, elecData, ionData, all_axes)
+    _resolve_lineout_values(config, detected)
     _trim_to_batch_multiple(config)
 
     if config["data"]["lineouts"]["type"] == "range" and opts["spectype"] == "angular":
