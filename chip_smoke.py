@@ -100,6 +100,9 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    detector's host seconds, the first batch's loss and gradient against the CPU float64 path, K1-K6 and both K9
    modes once a step at B = 20, each batch's loss falling, every fitted value finite and in its bounds, 60 rows of
    ``learned_parameters.csv`` at the detected pixels, ms a step);
+   every phase that runs ``runner.run`` or the command line also reports the run's ``figures`` tag
+   (``figures_check``): on a machine without matplotlib ``not drawn`` naming it, and no PNG in the run; where
+   matplotlib imports, ``drawn`` and every figure the JAX package draws for such a run under ``plots/``;
 5. drives the whole-shot 1V forward -- the ``tests/configs/time_test_*`` deck,
    128 lineouts with seeded random Te, ne, m and lam, float32 -- through
    ``ThomsonScatteringDiagnostic``, checks that every forward kernel launched
@@ -1780,7 +1783,8 @@ def main_deck_pair():
 
 def load_main_deck(**other):
     """The main deck merged as written, with ``other`` set as given.  The deck asks for the raw-data
-    visualizer, which only draws figures: the port logs that and goes on."""
+    visualizer, which the port draws inside a run where matplotlib imports (on the card's machine the run's
+    ``figures`` tag says why not)."""
     from tsadar_tpu_torch.utils.config import merge_configs
 
     cfg = merge_configs(*main_deck_pair())
@@ -2251,6 +2255,53 @@ def metric(meta, name):
     return meta["metrics"][name][-1]["value"]
 
 
+def jax_figure_names(artifacts):
+    """The figures under ``plots/`` that the JAX package draws for a run whose other files are these (its
+    ``plotters``' rules): the series overplot of a forward run; an ARTS image and its fit, the fit window's
+    two panels where its ``.nc`` is, the fit's rows and the EDF where its file is; for a 1D fit, each loaded
+    feature's data and fit, best and worst lineouts and two-panel image where its ``.nc`` is, the loss
+    histograms and one figure a fitted parameter (a column ``{parameter}_{species}`` of the CSV)."""
+    import csv
+
+    binary, table = Path(artifacts) / "binary", Path(artifacts) / "csv" / "learned_parameters.csv"
+    names = set()
+    if (binary / "electron_data.npz").exists() or (binary / "ion_data.npz").exists():
+        names.add("simulated_data.png")
+    if (binary / "angular_fit_and_data.npz").exists():
+        names |= {"angular_data_vs_fit.png"} | ({"fit_and_data.png"} if (binary / "fit_and_data.nc").exists() else set())
+        names |= {"angular_lineouts.png"} if table.exists() else set()
+    elif table.exists():
+        with open(table) as f:
+            columns = next(csv.reader(f))[1:]
+        names |= {"loss_histograms.png"} | {"{1}_{0}.png".format(*c.rsplit("_", 1)) for c in columns if "_" in c}
+    if (binary / "distribution_function.npz").exists():
+        names.add("distribution_function.png")
+    for sp in ("ele", "ion"):
+        if (binary / f"{sp}_fit_and_data.npz").exists():
+            names |= {f"{sp}_data_vs_fit.png", f"best_{sp}_lineouts.png", f"worst_{sp}_lineouts.png"}
+            names |= {f"fit_and_data_{sp}.png"} if (binary / f"{sp}_fit_and_data.nc").exists() else set()
+    return {f"plots/{n}" for n in names}
+
+
+def figures_check(run_dir, meta):
+    """The run's ``figures`` tag held to the port's rule (``utils.plotting``): where matplotlib cannot be imported
+    (the card's machine), ``not drawn`` with the ImportError naming matplotlib, and no PNG in the run; where it
+    can, ``drawn`` and every figure of ``jax_figure_names`` under ``plots/``.  Returns (report, ok)."""
+    from tsadar_tpu_torch.utils import plotting
+
+    drawable, reason = plotting.available()
+    artifacts = Path(run_dir) / "artifacts"
+    tag = meta["tags"].get("figures")
+    pngs = sorted(str(p.relative_to(artifacts)) for p in artifacts.rglob("*.png"))
+    if drawable:
+        missing = sorted(jax_figure_names(artifacts) - set(pngs))
+        ok = tag == "drawn" and not missing
+    else:
+        missing = []
+        ok = tag == f"not drawn: {reason}" and "matplotlib" in reason and not pngs
+    return {"tag": tag, "matplotlib": drawable, "pngs": len(pngs), "missing": missing}, ok
+
+
 def csv_columns(path):
     """{column: values} of a CSV in pandas' to_csv layout (index first), numbers as floats."""
     import csv
@@ -2342,14 +2393,15 @@ def cli_forward_subprocess(wrappers, smi):
         seconds = time.perf_counter() - t0
         marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
         launches = json.loads(marks[-1][len(LAUNCH_MARK):]) if marks else None
-        card, meta, ok = {}, None, out.returncode == 0
+        card, meta, figures, ok = {}, None, None, out.returncode == 0
         if ok:
             (run_dir,) = [p.parent for p in (tmp / "runs").rglob("run.json")]
             for feature in ("electron", "ion"):
                 card[feature] = np.load(run_dir / "artifacts" / "binary" / f"{feature}_data.npz", allow_pickle=True)["Sim"]
                 ok = ok and card[feature].shape == (1, 1, 1024) and bool(np.isfinite(card[feature]).all())
             meta = json.loads((run_dir / "run.json").read_text())
-            ok = ok and meta["tags"].get("status") == "completed"
+            figures, figures_ok = figures_check(run_dir, meta)
+            ok = ok and meta["tags"].get("status") == "completed" and figures_ok
     misses = {}
     if ok:
         ref64, ref32 = series_reference("1d", torch.float64), series_reference("1d", torch.float32)
@@ -2361,10 +2413,11 @@ def cli_forward_subprocess(wrappers, smi):
     emit({"phase": "cli_forward_subprocess", "rc": out.returncode, "wall_seconds": seconds,
           "shapes": {k: list(v.shape) for k, v in card.items()}, "misses_of_peak": misses, "tol": SERIES_TOL,
           "f32_ratio": SERIES_F32_RATIO, "spectrum_calc_time": metric(meta, "spectrum_calc_time") if meta else None,
-          "launches": launches, "launches_want": want, "stderr_tail": out.stderr[-2000:], "gpu": smi, "ok": ok})
+          "figures": figures, "launches": launches, "launches_want": want, "stderr_tail": out.stderr[-2000:], "gpu": smi,
+          "ok": ok})
     if not ok:
-        raise RuntimeError(f"cli_forward_subprocess: rc {out.returncode}, misses {misses}, launches {launches} "
-                           f"(want {want}):\n{out.stderr[-4000:]}")
+        raise RuntimeError(f"cli_forward_subprocess: rc {out.returncode}, misses {misses}, figures {figures}, launches "
+                           f"{launches} (want {want}):\n{out.stderr[-4000:]}")
     return launches
 
 
@@ -2386,6 +2439,7 @@ def cli_series(wrappers, smi):
         torch.cuda.synchronize()
         launches = read_and_zero(wrappers)
         run_dir, meta = run_of(tmp / "runs", run_id)
+        figures, figures_ok = figures_check(run_dir, meta)
         card, nc_equal = {}, {}
         for feature in ("electron", "ion"):
             base = run_dir / "artifacts" / "binary" / f"{feature}_data"
@@ -2397,7 +2451,7 @@ def cli_series(wrappers, smi):
     entries = card["electron"].shape[0]
     ref64, ref32 = series_reference("1d_series", torch.float64), series_reference("1d_series", torch.float32)
     misses = {}
-    ok = entries == 7 and all(nc_equal.values()) and "spectrum_calc_time" in meta["metrics"]
+    ok = entries == 7 and all(nc_equal.values()) and "spectrum_calc_time" in meta["metrics"] and figures_ok
     for i, feature in enumerate(("electron", "ion")):
         misses[feature], within = series_misses(card[feature], ref64[i], ref32[i])
         ok = ok and card[feature].shape == (7, 1, 1024) and bool(np.isfinite(card[feature]).all()) and within
@@ -2407,9 +2461,9 @@ def cli_series(wrappers, smi):
     emit({"phase": "cli_series", "entries": entries, "species": 2, "misses_of_peak": misses, "tol": SERIES_TOL,
           "f32_ratio": SERIES_F32_RATIO, "nc_equals_npz": nc_equal, "spectrum_calc_time": metric(meta, "spectrum_calc_time"),
           "ms_per_entry": ms, "median_ms_per_entry": statistics.median(ms), "median_ms_per_entry_after_first": statistics.median(ms[1:]),
-          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+          "figures": figures, "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
     if not ok:
-        raise RuntimeError(f"cli_series: misses {misses}, nc {nc_equal}, launches {launches} (want {want})")
+        raise RuntimeError(f"cli_series: misses {misses}, nc {nc_equal}, figures {figures}, launches {launches} (want {want})")
     return launches
 
 
@@ -2441,6 +2495,7 @@ def cli_forward_arts(wrappers, smi):
         seconds = time.perf_counter() - t0
         launches = read_and_zero(wrappers)
         run_dir, meta = run_of(tmp / "runs", run_id)
+        figures, figures_ok = figures_check(run_dir, meta)
         binary = run_dir / "artifacts" / "binary"
         files = sorted(p.name for p in binary.iterdir())
         image = np.load(binary / "angular_fit_and_data.npz")["fit"]
@@ -2453,12 +2508,14 @@ def cli_forward_arts(wrappers, smi):
     err = float(np.abs(image - ref).max() / np.abs(ref).max())
     want = {k: int(k in ARTS_FWD_KERNELS) for k in launches}
     present = {"angular_fit_and_data.npz", "fit_and_data.nc", "distribution_function.npz"} <= set(files)
-    ok = launches == want and present and image.shape == ref.shape and bool(np.isfinite(image).all()) and err <= FWD_TOL
+    ok = (launches == want and present and image.shape == ref.shape and bool(np.isfinite(image).all()) and err <= FWD_TOL
+          and figures_ok)
     emit({"phase": "cli_forward_arts", "image": list(image.shape), "max_err_of_peak": err, "tol": FWD_TOL, "files": files,
-          "seconds": seconds, "spectrum_calc_time": metric(meta, "spectrum_calc_time"), "launches": launches,
-          "launches_want": want, "gpu": smi, "ok": ok})
+          "seconds": seconds, "spectrum_calc_time": metric(meta, "spectrum_calc_time"), "figures": figures,
+          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
     if not ok:
-        raise RuntimeError(f"cli_forward_arts: {err:.3e} of peak, files {files}, launches {launches} (want {want})")
+        raise RuntimeError(f"cli_forward_arts: {err:.3e} of peak, files {files}, figures {figures}, launches {launches} "
+                           f"(want {want})")
     return launches
 
 
@@ -2494,7 +2551,8 @@ def cli_main_deck_fit(wrappers, smi):
         bucket = tmp / "staging" / "remote-mlflow-staging"
         marker = bucket / f"ingest-{run_id}-0.txt"
         exported = sorted(str(p.relative_to(bucket / "artifacts" / run_id)) for p in (bucket / "artifacts" / run_id).rglob("*") if p.is_file())
-        gates = {"csv_pixels": table["lineout pixel"].tolist() == [500.0, 505.0],
+        figures, figures_ok = figures_check(run_dir, meta)
+        gates = {"figures": figures_ok, "csv_pixels": table["lineout pixel"].tolist() == [500.0, 505.0],
                  "upstream_tolerances": all(abs(table[k][0] - val) / val <= tol for k, (val, tol) in MAIN_DECK_TRUTH.items()),
                  "sigmas": len(sigmas) == 6 and all(np.isfinite(v).all() and (v != 0).all() and len(v) == 2 for v in sigmas.values()),
                  "nc": (art / "binary" / "ele_fit_and_data.nc").is_file(),
@@ -2506,7 +2564,7 @@ def cli_main_deck_fit(wrappers, smi):
     ok = all(gates.values())
     emit({"phase": "cli_main_deck_fit", "fitted": {k: table[k].tolist() for k in MAIN_DECK_TRUTH}, "truth_and_rtol": MAIN_DECK_TRUTH,
           "pin_misses": {k: [abs(g - w) / w for g, w in zip(table[k], MAIN_DECK_PINS[k])] for k in MAIN_DECK_PINS},
-          "sigmas": {k: v.tolist() for k, v in sigmas.items()}, "gates": gates, "exported": exported, "nfev": nfev,
+          "sigmas": {k: v.tolist() for k, v in sigmas.items()}, "gates": gates, "figures": figures, "exported": exported, "nfev": nfev,
           "stage_seconds": {k: metric(meta, k) for k in STAGE_METRICS}, "seconds": seconds,
           "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
     if not ok:
@@ -2547,6 +2605,7 @@ def cli_whole_shot_fit(wrappers, smi):
         seconds = time.perf_counter() - t0
         launches = read_and_zero(wrappers)
         run_dir, meta = run_of(tmp / "runs", run_id)
+        figures, figures_ok = figures_check(run_dir, meta)
         table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
         sigmas = csv_columns(run_dir / "artifacts" / "csv" / "sigmas.csv")
     pix = table["lineout pixel"]
@@ -2560,10 +2619,10 @@ def cli_whole_shot_fit(wrappers, smi):
     steps = WHOLE_SHOT_OPTIMIZER["num_epochs"]
     want = {k: (steps + int(k in FORWARD_KERNELS)) * int(k in REAL_FIT_KERNELS) for k in launches}
     checks = {"quality_ok": all(gates.values()), "rows": len(pix) == 128, "sigmas": sig.shape == (128, 6) and bool(np.isfinite(sig).all()),
-              "launches": launches == want}
+              "launches": launches == want, "figures": figures_ok}
     ok = all(checks.values())
     emit({"phase": "cli_whole_shot_fit", "lineouts": len(pix), "at_pixels_500_508": at, "truth_and_tol": REAL_TRUTH,
-          "gates": gates, "quality_ok": all(gates.values()), "checks": checks, "fit_loss": fit_loss,
+          "gates": gates, "quality_ok": all(gates.values()), "checks": checks, "figures": figures, "fit_loss": fit_loss,
           "postprocess_lineout_loss_median": float(np.median(post_losses)), "postprocess_lineout_loss_worst": float(post_losses.max()),
           "sigmas_shape": list(sig.shape), "sigma_median_abs": {k: float(np.median(np.abs(v))) for k, v in sigmas.items()},
           "stage_seconds_tracker": {k: metric(meta, k) for k in STAGE_METRICS + FIT_METRICS},
@@ -2678,6 +2737,7 @@ def detector_112059_fit(wrappers, smi):
         seconds = time.perf_counter() - t0
         launches = read_and_zero(wrappers)
         run_dir, meta = run_of(tmp / "runs", run_id)
+        figures, figures_ok = figures_check(run_dir, meta)
         table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
     batches, epochs = len(DETECTOR_PIXELS) // batch_size, DETECTOR_OPTIMIZER["num_epochs"]
     steps = batches * epochs
@@ -2690,9 +2750,10 @@ def detector_112059_fit(wrappers, smi):
     checks = {"rows": len(table["lineout pixel"]) == len(DETECTOR_PIXELS),
               "pixels": table["lineout pixel"].tolist() == [float(p) for p in DETECTOR_PIXELS],
               "finite_in_bounds": not any(outside.values()), "loss_falls": bool((losses[:, -1] < losses[:, 0]).all()),
-              "losses_finite": bool(np.isfinite(losses).all()), "launches": launches == want}
+              "losses_finite": bool(np.isfinite(losses).all()), "launches": launches == want, "figures": figures_ok}
     ok = all(checks.values())
     emit({"phase": "detector_112059_fit", "lineouts": len(table["lineout pixel"]), "batches": batches, "epochs": epochs,
+          "figures": figures,
           "batch_first_last_loss": [[float(b[0]), float(b[-1])] for b in losses], "fit_loss": metric(meta, "overall loss"),
           "fitted_median": {k: float(np.median(table[k])) for k in bounds}, "outside_bounds_or_not_finite": outside,
           "checks": checks, "ms_per_step": ms_per_step, "steps": steps, "detector_host_seconds": detector_seconds[0],
@@ -2790,15 +2851,17 @@ def resume_from(tmp, ckpt, latest, wrappers):
     seconds = time.perf_counter() - t0
     marks = [ln for ln in out.stderr.splitlines() if ln.startswith(LAUNCH_MARK)]
     launches = json.loads(marks[-1][len(LAUNCH_MARK):]) if marks else None
-    steps, status = [], None
+    steps, status, figures, figures_ok = [], None, None, False
     if out.returncode == 0:
         (run_json,) = runs.rglob("run.json")
         meta = json.loads(run_json.read_text())
         steps, status = [m["step"] for m in meta["metrics"].get("epoch loss", [])], meta["tags"].get("status")
+        figures, figures_ok = figures_check(run_json.parent, meta)
     want = {k: (ARTS_RESUME_EPOCHS + int(k in FORWARD_KERNELS)) * int(k in ARTS_1V_KERNELS) for k in wrappers}
-    ok = out.returncode == 0 and status == "completed" and steps == list(range(latest, epochs)) and launches == want
+    ok = (out.returncode == 0 and status == "completed" and steps == list(range(latest, epochs)) and launches == want
+          and figures_ok)
     report = {"rc": out.returncode, "status": status, "latest": latest, "asked_epochs": epochs, "epoch_loss_steps": steps,
-              "launches": launches, "launches_want": want, "wall_seconds": seconds,
+              "figures": figures, "launches": launches, "launches_want": want, "wall_seconds": seconds,
               "stderr_tail": "" if ok else out.stderr[-3000:]}
     return ok, report
 
@@ -2829,6 +2892,7 @@ def cli_arts_1v_fit(wrappers, smi):
         seconds = time.perf_counter() - t0
         launches = read_and_zero(wrappers)
         run_dir, meta = run_of(tmp / "runs", run_id)
+        figures, figures_ok = figures_check(run_dir, meta)
         art = run_dir / "artifacts"
         files = sorted(str(p.relative_to(art)) for p in art.rglob("*") if p.is_file())
         sig = np.load(art / "binary" / "sigmas_fe.npz")["sigmas"]
@@ -2851,9 +2915,9 @@ def cli_arts_1v_fit(wrappers, smi):
              "files": {"binary/angular_fit_and_data.npz", "binary/fit_and_data.nc", "csv/learned_parameters.csv",
                        "binary/sigmas_fe.npz", "binary/sigma-fe.nc"} <= set(files),
              "checkpoint": latest is not None, "resumed": resumed, "launches": launches == want,
-             "stage_metrics": all(k in meta["metrics"] for k in ARTS_1V_STAGES)}
+             "stage_metrics": all(k in meta["metrics"] for k in ARTS_1V_STAGES), "figures": figures_ok}
     ok = all(gates.values())
-    emit({"phase": "cli_arts_1v_fit", "gates": gates, "epochs_counted": len(epoch_losses), "steps_run": steps,
+    emit({"phase": "cli_arts_1v_fit", "gates": gates, "figures": figures, "epochs_counted": len(epoch_losses), "steps_run": steps,
           "first_epoch_loss": epoch_losses[0], "best_epoch_loss": min(epoch_losses), "last_epoch_loss": epoch_losses[-1],
           "drop_tol": ARTS_1V_DROP, "ms_per_step": ms_per_step, "first_chunk_seconds": angular["chunk_seconds"][0],
           "chunks_seconds": sum(angular["chunk_seconds"]),
@@ -3437,13 +3501,15 @@ def run_bo_subprocess(wrappers, smi):
         runs = sorted(p.parent for p in (tmp / "runs").rglob("run.json"))
         status = [json.loads((r / "run.json").read_text())["tags"].get("status") for r in runs]
         decks_logged = all((r / "artifacts" / "defaults.yaml").exists() for r in runs)
+        figures = [figures_check(r, json.loads((r / "run.json").read_text())) for r in runs]
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{"target"')]
     best = json.loads(lines[-1]) if lines else None
     ok = (out.returncode == 0 and best is not None and math.isfinite(best["target"]) and len(runs) == 2
           and status == ["completed"] * 2 and decks_logged and launches is not None
-          and all(launches[k] > 0 for k in REAL_FIT_KERNELS))
+          and all(launches[k] > 0 for k in REAL_FIT_KERNELS) and all(f_ok for _, f_ok in figures))
     emit({"phase": "run_bo", "rc": out.returncode, "wall_seconds": seconds, "best": best, "runs": len(runs),
-          "status": status, "launches": launches, "stderr_tail": out.stderr[-1500:], "gpu": smi, "ok": ok})
+          "status": status, "figures": [f for f, _ in figures], "launches": launches, "stderr_tail": out.stderr[-1500:],
+          "gpu": smi, "ok": ok})
     if not ok:
         raise RuntimeError(f"run_bo: rc {out.returncode}, best {best}, runs {len(runs)} {status}, launches {launches}:\n"
                            f"{out.stderr[-4000:]}")
@@ -3591,9 +3657,10 @@ def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
         marks = [json.loads(ln[len(DIST_MARK):]) for ln in out.stderr.splitlines() if ln.startswith(DIST_MARK)]
         rank = marks[-1] if marks else {}
         runs = [p.parent for p in (tmp / "runs").rglob("run.json")]
-        gates, at, meta = {}, {}, None
+        gates, at, meta, figures = {}, {}, None, (None, False)
         if out.returncode == 0 and len(runs) == 1:
             meta = json.loads((runs[0] / "run.json").read_text())
+            figures = figures_check(runs[0], meta)
             table = csv_columns(runs[0] / "artifacts" / "csv" / "learned_parameters.csv")
             pix = table["lineout pixel"]
             sel = (pix >= WHOLE_SHOT_WINDOW[0]) & (pix <= WHOLE_SHOT_WINDOW[1])
@@ -3625,10 +3692,11 @@ def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
               "nccl": rank.get("group") == {"backend": "nccl", "world": 1},
               "collectives": (rank.get("collectives") or {}).get("all_reduce", 0) > 0, "launches": launches == want,
               "quality_ok": bool(gates) and all(gates.values()), "data_written": child_data is not None,
-              "losses": early_miss <= DIST_EARLY_RTOL and loss_miss <= DIST_ONE_RANK_LOSS_RTOL}
+              "losses": early_miss <= DIST_EARLY_RTOL and loss_miss <= DIST_ONE_RANK_LOSS_RTOL, "figures": figures[1]}
     ok = all(checks.values())
     emit({"phase": "dist_one_rank_nccl", "command": "python -m torch.distributed.run --standalone --nproc_per_node 1 "
           "-m tsadar_tpu_torch --cfg DIR --mode fit", "lineouts": N_LINEOUTS, "steps": steps, "checks": checks,
+          "figures": figures[0],
           "gates": gates, "at_pixels_500_508": at, "truth_and_tol": REAL_TRUTH, "group": rank.get("group"),
           "collectives": rank.get("collectives"), "first_loss": losses[0] if losses else None,
           "final_loss": losses[-1] if losses else None, "child_data_same_bits_as_real_data_prepare": same_data,

@@ -193,9 +193,11 @@ def test_cli_arts_fit_matches_the_jax_fitter(tmp_path, monkeypatch):
     assert np.all(miss <= rtol), dict(zip(names, miss / rtol))
 
     files = {str(p.relative_to(art)) for p in art.rglob("*") if p.is_file()}
-    # no EDF file: a DLM EDF gives the final parameters no "fe", and the JAX package plots none
+    # no EDF file and no EDF figure: a DLM EDF gives the final parameters no "fe", and the JAX package plots none;
+    # the image's figures, matplotlib being installed here (tests/test_torch_figures.py holds their pixels)
     assert files == {"defaults.yaml", "inputs.yaml", "binary/angular_fit_and_data.npz", "binary/fit_and_data.nc",
-                     "binary/sigmas_fe.npz", "binary/sigma-fe.nc", "csv/learned_parameters.csv", "state_weights.txt"}
+                     "binary/sigmas_fe.npz", "binary/sigma-fe.nc", "csv/learned_parameters.csv", "state_weights.txt",
+                     "plots/angular_data_vs_fit.png", "plots/fit_and_data.png", "plots/angular_lineouts.png"}
     image = np.load(art / "binary" / "angular_fit_and_data.npz")
     assert image["data"].shape == (103, 205) and image["fit"].shape == (86, 205) and np.isfinite(image["fit"]).all()
     assert meta["tags"]["status"] == "completed"

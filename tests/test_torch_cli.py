@@ -103,7 +103,8 @@ def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path, capsys, monkeypatch):
 
 def test_cli_fit_child_process_writes_the_run(tmp_path):
     """``python -m tsadar_tpu_torch --mode fit`` in a process of its own: exit 0, the run's record (status, stage
-    metrics, parameters), its files and its stored decks; the CSV's columns and pixels."""
+    metrics, parameters, the ``figures`` tag), its files and figures and its stored decks; the CSV's columns and
+    pixels."""
     defaults, inputs = _small_decks()
     _write_decks(tmp_path / "cfg", defaults, inputs)
     out = _module(["--cfg", "cfg", "--mode", "fit", "--device", "cpu"], tmp_path)
@@ -116,8 +117,13 @@ def test_cli_fit_child_process_writes_the_run(tmp_path):
     assert meta["tags"]["status"] == "completed" and STAGE_METRICS <= set(meta["metrics"])
     assert meta["params"]["optimizer.method"] == "adam"
     files = {str(p.relative_to(run_dir / "artifacts")) for p in (run_dir / "artifacts").rglob("*") if p.is_file()}
+    # and, matplotlib being installed here, the JAX package's figures (tests/test_torch_figures.py holds their pixels)
+    figures = {f"plots/{n}.png" for n in ("loss_histograms", "ele_data_vs_fit", "fit_and_data_ele", "best_ele_lineouts",
+                                          "worst_ele_lineouts", "electron_Te", "electron_ne", "electron_m",
+                                          "general_amp1", "general_amp2", "general_lam")} | {"electron_raw_data.png"}
     assert files == {"defaults.yaml", "inputs.yaml", "csv/learned_parameters.csv", "csv/sigmas.csv", "binary/sigmas.npz",
-                     "sigmas.nc", "binary/ele_fit_and_data.npz", "binary/ele_fit_and_data.nc"}
+                     "sigmas.nc", "binary/ele_fit_and_data.npz", "binary/ele_fit_and_data.nc"} | figures
+    assert meta["tags"]["figures"] == "drawn"
     assert yaml.safe_load((run_dir / "artifacts" / "defaults.yaml").read_text()) == defaults
 
 

@@ -10,8 +10,9 @@ background shot, a "Shot" background, the ARTS "Fit" gain model), and
 shot) on the whole-shot deck at 128 lineouts (pixels 300:812:4):
 the lineouts, their amplitudes and noise, the scattering angles, the axes, and
 the config fields ``prepare_data`` writes (``npts``, ``lamrangE``,
-``lamrangI``, ``widIRF``, ``CCDsize``).  The raw-data visualizer (matplotlib)
-is logged and skipped; the feature detector has its own tests
+``lamrangI``, ``widIRF``, ``CCDsize``).  The raw-data visualizer draws into an
+open run where matplotlib imports and is skipped, with one log line and the
+run's ``figures`` tag, where it does not; the feature detector has its own tests
 (``tests/test_torch_feature_detector.py``).
 
 scipy's Levenberg-Marquardt ``curve_fit`` (1.17) is not deterministic on the
@@ -25,7 +26,9 @@ holds what the port's code does, not which branch scipy took.
 
 import contextlib
 import copy
+import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,7 +48,6 @@ from tsadar_tpu_torch.utils.data_handling.hdf4 import read_sds
 from tsadar_tpu_torch.utils.data_handling.load_ts_data import DATA_DIR, loadData
 from tsadar_tpu_torch.utils.process.correct_throughput import correctThroughput
 from tsadar_tpu_torch.utils.process.evaluate_background import get_shot_bg
-from tsadar_tpu_torch.utils.process import prepare
 from tsadar_tpu_torch.utils.process.prepare import prepare_data
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +89,7 @@ def same_scipy_fits():
 def _deck(start=300, end=812, skip=4, batch_size=128):
     decks = [yaml.safe_load(open(os.path.join(ROOT, "tests", "configs", f"time_test_{n}.yaml"))) for n in ("defaults", "inputs")]
     cfg = merge_configs(*decks)
-    cfg["data"]["launch_data_visualizer"] = False  # matplotlib; not ported
+    cfg["data"]["launch_data_visualizer"] = False  # a figure: tests/test_torch_figures.py
     cfg["data"]["lineouts"].update(start=start, end=end, skip=skip)
     cfg["optimizer"]["batch_size"] = batch_size
     return _lineout_selection(cfg)
@@ -196,20 +198,36 @@ def test_prepare_data(prepared):
         _same(cfg["data"]["lineouts"][key], jcfg["data"]["lineouts"][key], key)
 
 
-def test_the_visualizer_is_logged_and_skipped(monkeypatch):
-    """The raw-data visualizer draws figures only: the port logs one line for it and prepares the same data
-    as with it off."""
+def test_the_visualizer_is_logged_and_skipped(tmp_path, monkeypatch):
+    """Where matplotlib cannot be imported (the card's machine) the raw-data visualizer is skipped: the run
+    logs one line for it, its tag ``figures`` says why, and the data are those prepared with it off.  Where
+    matplotlib imports, the run gets the raw frames' figures (``tests/test_torch_figures.py`` holds their
+    pixels to the JAX package's) and the same data."""
+    from tsadar_tpu_torch.utils import mlflow_shim as mlflow
+    from tsadar_tpu_torch.utils import plotting
+
     lines = []
-    monkeypatch.setattr(prepare, "log_info", lines.append)
+    monkeypatch.setattr(plotting, "log_info", lines.append)
+    monkeypatch.setenv("TSADAR_RUNS_DIR", str(tmp_path))
     cfg = _deck(500, 510, 5, 2)
     cfg["data"]["launch_data_visualizer"] = True
+    missing = ImportError("No module named 'matplotlib'", name="matplotlib")
     with same_scipy_fits():  # the streak background's fit lands on one of two mirror solutions (module docstring)
         off = prepare_data(_deck(500, 510, 5, 2), 101675)
-        assert not any("visualizer" in ln for ln in lines)
-        on = prepare_data(cfg, 101675)
-    assert [ln for ln in lines if "visualizer" in ln] == [
-        "data.launch_data_visualizer: the port produces no figures; the raw-data visualizer is skipped"]
+        with monkeypatch.context() as m:
+            m.setattr(plotting, "_import", {"error": missing, "module": None})
+            with mlflow.start_run(run_name="no-matplotlib") as skipped:
+                on = prepare_data(copy.deepcopy(cfg), 101675)
+        with mlflow.start_run(run_name="matplotlib") as drawn:
+            again = prepare_data(cfg, 101675)
+    assert lines == ["figures not drawn: matplotlib cannot be imported (No module named 'matplotlib')"]
+    assert json.loads((Path(skipped.run_dir) / "run.json").read_text())["tags"] == {
+        "figures": "not drawn: No module named 'matplotlib'"}
+    assert not (Path(skipped.run_dir) / "artifacts" / "electron_raw_data.png").exists()
+    assert json.loads((Path(drawn.run_dir) / "run.json").read_text())["tags"] == {"figures": "drawn"}
+    assert (Path(drawn.run_dir) / "artifacts" / "electron_raw_data.png").is_file()
     np.testing.assert_equal(on, off)
+    np.testing.assert_equal(again, off)
 
 
 def test_multiplexed_shots_raise():

@@ -2,14 +2,16 @@
 
 The deck is ``tests/configs/time_test_{defaults,inputs}.yaml`` merged as
 written (shot 101675, pixels 500 and 505, batch size 2, ``method: l-bfgs-b``)
-with the raw-data visualizer off (matplotlib; the port has none) and, in
+with the raw-data visualizer off (a figure; ``tests/test_torch_figures.py``
+holds the figures to the JAX package's) and, in
 tier-1, ``num_epochs`` cut to 3 L-BFGS-B iterations: both packages' final
 parameters agree to 1e-6 relative, the port's come with the lineout pixels and
 the time axis, and its record with the stage seconds and scipy's ``nit``.  The
 two fits share one fit of the streak background (``same_scipy_fits``: scipy's
 ``curve_fit`` ends it in either of two mirror solutions).
 The JAX package's plots are stubbed out (only ``get_final_params`` is kept):
-they cost tier-1 seconds and say nothing of the fit.
+they cost tier-1 seconds and say nothing of the fit.  The port's fit runs
+outside a tracked run, so it writes no file and draws no figure.
 
 ``test_fit_main_deck_as_written`` (slow-marked, as
 ``tests/test_inverse/test_1d_data.py`` is) runs the deck's full 1000

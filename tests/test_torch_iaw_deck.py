@@ -3,7 +3,7 @@
 The deck set as ``tests/test_inverse/test_1d_iaw_data.py`` sets it: ps
 lineouts 535:735:100 (two, one batch), both channels loaded, only the IAW arm
 of the loss counted (``fit_IAW``), Te, Va, ud and amp3 active, the raw-data
-visualizer off (matplotlib; the port has none).  Each package's data pipeline
+visualizer off (a figure: ``tests/test_torch_figures.py``).  Each package's data pipeline
 feeds its own ``LossFunction`` at the deck's start values, on the CPU in
 float64: the loss and the row losses to 1e-10 relative, ThryE to 1e-10 of its
 peak, each active parameter's gradient to 1e-8 of its largest entry (lam's,
@@ -48,7 +48,7 @@ def iaw_deck():
     decks = [yaml.safe_load(open(os.path.join(ROOT, "configs", "1d", f"{n}.yaml"))) for n in ("defaults", "inputs")]
     cfg = merge_configs(*decks)
     cfg["data"]["lineouts"].update({"start": 535, "end": 735, "skip": 100})
-    cfg["data"]["launch_data_visualizer"] = False  # matplotlib; not ported
+    cfg["data"]["launch_data_visualizer"] = False  # a figure: tests/test_torch_figures.py
     return cfg
 
 

@@ -44,7 +44,7 @@ BREAKDOWN = ("modlE", "modlI", "ThryE", "ThryI", "eIRF", "iIRF", "lamAxisE", "la
 def deck_112059():
     decks = [yaml.safe_load(open(os.path.join(CONFIGS, f"time_test_{n}.yaml"))) for n in ("defaults", "inputs")]
     cfg = merge_configs(*decks)
-    cfg["data"]["launch_data_visualizer"] = False  # matplotlib; not ported
+    cfg["data"]["launch_data_visualizer"] = False  # a figure: tests/test_torch_figures.py
     cfg["data"]["shotnum"] = 112059
     cfg["data"]["lineouts"].update({"type": "pixel", "start": 500, "end": 510, "skip": 5})
     cfg["optimizer"].update({"method": "adam", "num_epochs": 30, "batch_size": 2})

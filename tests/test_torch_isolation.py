@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, nothing of the JAX package, nothing that the
-card's machine lacks (cv2, pandas, matplotlib), no quiet CPU fallback."""
+card's machine lacks (cv2, pandas; matplotlib only inside the functions that draw
+figures, never when a module is imported), no quiet CPU fallback."""
 
 import ast
 import os
@@ -17,25 +18,48 @@ from tsadar_tpu_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "tsadar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "optax", "tsadar_tpu", "cv2", "pandas", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "optax", "tsadar_tpu", "cv2", "pandas")
+AT_MODULE_LEVEL = ("matplotlib",)  # lazily, inside the functions that draw (utils.plotting), never at import
 
 
-def _forbidden(module):
-    return module is not None and any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+def _forbidden(module, names=FORBIDDEN):
+    return module is not None and any(module == f or module.startswith(f + ".") for f in names)
 
 
-def _imports(path):
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _imports(nodes):
+    for node in nodes:
         if isinstance(node, ast.Import):
             yield from (alias.name for alias in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
 
 
+def _module_level(tree):
+    """The statements that run when the module is imported: all but the bodies of functions (and of the classes'
+    methods)."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        yield node
+        todo.extend(ast.iter_child_nodes(node))
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    bad = [m for m in _imports(path) if _forbidden(m)]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [m for m in _imports(ast.walk(tree)) if _forbidden(m)]
+    bad += [m for m in _imports(_module_level(tree)) if _forbidden(m, AT_MODULE_LEVEL)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_module_level_rule_reads_only_what_runs_at_import():
+    tree = ast.parse("import os\ntry:\n    import matplotlib\nexcept ImportError:\n    pass\n"
+                     "class A:\n    import matplotlib.colors\n    def f(self):\n        import matplotlib.figure\n"
+                     "def g():\n    from matplotlib import animation\n")
+    assert sorted(_imports(_module_level(tree))) == ["matplotlib", "matplotlib.colors", "os"]
+    assert sorted(_imports(ast.walk(tree))) == ["matplotlib", "matplotlib", "matplotlib.colors", "matplotlib.figure", "os"]
 
 
 def _clean_env():
@@ -56,7 +80,9 @@ def test_importing_the_port_loads_no_jax():
         "from tsadar_tpu_torch.utils.data_handling import hdf4, load_ts_data\n"
         "from tsadar_tpu_torch.utils.process import correct_throughput, evaluate_background, feature_detector, lineouts\n"
         "from tsadar_tpu_torch.utils.process import prepare, warpcorr\n"
-        f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN!r})])\n"
+        "from tsadar_tpu_torch.utils.plotting import edf_movie, lineout_plot, plotters\n"
+        "from tsadar_tpu_torch.utils.data_handling import data_visualizer\n"
+        f"print([m for m in sys.modules if any(m == f or m.startswith(f + '.') for f in {FORBIDDEN + AT_MODULE_LEVEL!r})])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_clean_env(), capture_output=True, text=True,
                          timeout=120, check=True)

@@ -29,7 +29,7 @@ CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 def deck_111411():
     decks = [yaml.safe_load(open(os.path.join(CONFIGS, f"time_test_{n}.yaml"))) for n in ("defaults", "inputs")]
     cfg = merge_configs(*decks)
-    cfg["data"]["launch_data_visualizer"] = False  # matplotlib; not ported
+    cfg["data"]["launch_data_visualizer"] = False  # a figure: tests/test_torch_figures.py
     cfg["data"]["shotnum"] = 111411
     cfg["parameters"]["electron"]["Te"]["val"] = 0.8
     cfg["parameters"]["electron"]["ne"]["val"] = 0.5

@@ -38,7 +38,7 @@ GRAD_TOL = 1e-8  # of each leaf's largest |gradient|
 def _deck():
     decks = [yaml.safe_load(open(os.path.join(ROOT, "tests", "configs", f"time_test_{n}.yaml"))) for n in ("defaults", "inputs")]
     cfg = merge_configs(*decks)
-    cfg["data"]["launch_data_visualizer"] = False  # matplotlib; not ported
+    cfg["data"]["launch_data_visualizer"] = False  # a figure: tests/test_torch_figures.py
     return _lineout_selection(cfg)  # the deck's own lineouts, 500:510:5, one batch of 2
 
 

@@ -123,11 +123,13 @@ def test_series_changes_the_deck_as_the_jax_package_does(series_runs):
 
 
 def test_series_files_are_the_jax_packages_but_the_figures(series_runs):
+    """The same files, the figure ``plots/simulated_data.png`` included since the port draws it too
+    (``tests/test_torch_figures.py`` holds its pixels to the JAX package's)."""
     def files(root):
         return {os.path.relpath(p, root) for p in glob.glob(os.path.join(root, "**", "*"), recursive=True) if os.path.isfile(p)}
 
     jax_files = files(series_runs["jax"][0])
-    assert files(series_runs["port"][0]) == {f for f in jax_files if not f.startswith("plots")}
+    assert files(series_runs["port"][0]) == jax_files
     assert {f for f in jax_files if f.startswith("plots")} == {"plots/simulated_data.png"}
 
 

@@ -9,19 +9,22 @@ no ``series``), each entry setting ``series.param1`` to ``param4`` by
 
 * the 1D arm: one ``ThomsonScatteringDiagnostic``, a batched
   ``ThomsonParams`` of one lineout per entry; writes
-  ``binary/{electron,ion}_data.npz`` and ``.nc`` for each loaded feature;
+  ``binary/{electron,ion}_data.npz`` and ``.nc`` for each loaded feature,
+  and the figure ``plots/simulated_data.png``: each loaded feature's spectra
+  overplotted, with the series values as the legend;
 * the angular arm: the ARTS image in table mode (the chi tables' layout
   step, then K7), with the camera's angle axis from
   ``get_calibrations(104000, ...)`` and unbatched parameters; writes
   ``utils.artifacts.plot_data_angular``'s files and the EDF
-  (``utils.artifacts.save_dist``).
+  (``utils.artifacts.save_dist``), and their figures
+  (``utils.plotting.plotters.plot_data_angular`` and ``plot_dist``).
 
 The files are logged as the run's artifacts, and ``spectrum_calc_time`` (the
-seconds of every entry's forward, read back) as a metric.  The JAX function
-compiles once and loops; the port loops eagerly over one diagnostic, whose
-tables depend on the deck's grids and ranges but on no parameter that a
-series sets.  The figures are left out (the card's machine has no
-matplotlib).
+seconds of every entry's forward, read back) as a metric.  The figures are
+drawn where ``utils.plotting.figures()`` says so (a run is open and
+matplotlib imports).  The JAX function compiles once and loops; the port
+loops eagerly over one diagnostic, whose tables depend on the deck's grids
+and ranges but on no parameter that a series sets.
 """
 
 import os
@@ -35,8 +38,10 @@ from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params import ThomsonParams
 from ..utils import artifacts
 from ..utils import mlflow_shim as mlflow
+from ..utils import plotting
 from ..utils.calibration import get_calibrations, get_scattering_angles
 from ..utils.ncwriter import write_dataset
+from ..utils.plotting import plotters
 
 
 def _write_series_nc(path, sim, series_vals, lam_axis):
@@ -50,6 +55,17 @@ def _write_series_nc(path, sim, series_vals, lam_axis):
     except (TypeError, ValueError):
         coord = np.arange(sim.shape[0], dtype=float)
     write_dataset(path, {"Sim": sim}, [("series", coord), ("Wavelength", np.squeeze(lam_axis))])
+
+
+def _plot_feature(axis, sim, lam_axis, series_vals):
+    """One feature's spectra overplotted on ``axis``, with the series values (None: no series) as the legend."""
+    axis.plot(lam_axis.squeeze().transpose(), sim.squeeze().transpose())
+    axis.set_title("Simulated Data", fontsize=14)
+    axis.set_ylabel("Amp (arb. units)")
+    axis.set_xlabel("Wavelength (nm)")
+    axis.grid()
+    if series_vals is not None:
+        axis.legend([str(v) for v in series_vals])
 
 
 def _set_series_param(parameters, name, value):
@@ -116,25 +132,35 @@ def forward_pass(config, device=None, record=None, dtype=None):
     spectime = time.perf_counter() - t_start
     ThryE, ThryI, lamAxisE, lamAxisI = (np.array(a) for a in (ThryE, ThryI, lamAxisE, lamAxisI))
 
+    draw = plotting.figures()
     with tempfile.TemporaryDirectory() as td:
-        for d in ("binary", "csv"):
+        for d in ("plots", "binary", "csv") if draw else ("binary", "csv"):
             os.makedirs(os.path.join(td, d), exist_ok=True)
         series_vals = config["series"]["vals1"] if "series" in config else [0]
         if is_angular:
             with torch.no_grad():
                 fe = ts_params()["electron"]["fe"].detach().cpu().numpy()
-            artifacts.plot_data_angular(config, {"ele": np.squeeze(ThryE)}, {"e_data": np.zeros(tuple(config["other"]["CCDsize"]))},
-                                        {"epw_x": sas["angAxis"], "epw_y": lamAxisE}, td)
+            fits, data = {"ele": np.squeeze(ThryE)}, {"e_data": np.zeros(tuple(config["other"]["CCDsize"]))}
+            axes = {"epw_x": sas["angAxis"], "epw_y": lamAxisE}
+            artifacts.plot_data_angular(config, fits, data, axes, td)
             artifacts.save_dist({"fe": np.squeeze(fe)}, td)
+            if draw:
+                plotters.plot_data_angular(config, fits, data, axes, td)
+                plotters.plot_dist(config, "electron", {"fe": np.squeeze(fe)}, None, td)
         else:
             opts = config["other"]["extraoptions"]
-            for loaded, sim, lam_axis, name in ((opts["load_ele_spec"], ThryE, lamAxisE, "electron"),
-                                                (opts["load_ion_spec"], ThryI, lamAxisI, "ion")):
+            fig, ax = plotting.subplots(1, 2, figsize=(12, 6), tight_layout=True) if draw else (None, (None, None))
+            for loaded, axis, sim, lam_axis, name in ((opts["load_ele_spec"], ax[0], ThryE, lamAxisE, "electron"),
+                                                      (opts["load_ion_spec"], ax[1], ThryI, lamAxisI, "ion")):
                 if not loaded:
                     continue
+                if draw:
+                    _plot_feature(axis, sim, lam_axis, series_vals if "series" in config else None)
                 np.savez(os.path.join(td, "binary", f"{name}_data.npz"), Sim=sim,
                          series=np.asarray(series_vals, dtype=object), Wavelength=lam_axis[0])
                 _write_series_nc(os.path.join(td, "binary", f"{name}_data.nc"), sim, series_vals, lam_axis[0])
+            if draw:  # no extension, as the JAX package names it: matplotlib writes simulated_data.png
+                fig.savefig(os.path.join(td, "plots", "simulated_data"), bbox_inches="tight")
         mlflow.log_artifacts(td)
         mlflow.log_metrics({"spectrum_calc_time": spectime})
     if record is not None:

@@ -79,11 +79,14 @@ class SimpleBayesOpt:
 
 
 def one_run(config, device=None):
-    """One tracked ``fitter.fit`` of ``config``: the negative of its loss."""
+    """One tracked ``fitter.fit`` of ``config`` (the run tagged ``figures`` as ``runner`` tags it): the negative of
+    its loss."""
     from .inverse import fitter
     from .utils import mlflow_shim as mlflow
+    from .utils import plotting
 
     mlflow.log_config(config)
+    plotting.figures()
     t0 = time.time()
     _, loss = fitter.fit(config=config, device=device)
     mlflow.log_metrics({"total_time": time.time() - t0, "num_cores": int(mp.cpu_count())})

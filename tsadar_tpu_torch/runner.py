@@ -16,9 +16,11 @@ of an entry point, before any work, once; a ``torchrun`` launch of more than
 one rank (``WORLD_SIZE > 1``) starts it too.  In a process group rank 0
 registers the run, reads its decks and writes every file; the other ranks
 share the fit and end with it, and the group is destroyed as the entry point
-returns or raises.  ``_configure_jax`` has no counterpart.  A deck that fails
-validation and a device the port cannot reach raise before a run is
-registered (the JAX package registers first).
+returns or raises.  Every run is tagged ``figures``: ``drawn`` where
+matplotlib imports, else ``not drawn: <why>`` (``utils.plotting``; the
+card's machine has no matplotlib).  ``_configure_jax`` has no counterpart.
+A deck that fails validation and a device the port cannot reach raise
+before a run is registered (the JAX package registers first).
 """
 
 import contextlib
@@ -34,6 +36,7 @@ from .forward import calc_series
 from .inverse import fitter
 from .parallel import dist as par
 from .utils import mlflow_shim as mlflow
+from .utils import plotting
 from .utils.config import merge_configs
 from .utils.console import log_info
 from .utils.schema import validate_config
@@ -124,8 +127,10 @@ def _profile(config, device):
 
 
 def _run_(config, mode="fit", device=None, record=None):
-    """The mode, inside the open run: the config as parameters, ``total_time``, ``num_cores``, status ``completed``."""
+    """The mode, inside the open run: the config as parameters, the tag ``figures`` (``utils.plotting.figures``),
+    ``total_time``, ``num_cores``, status ``completed``."""
     mlflow.log_config(config)
+    plotting.figures()
     t0 = time.time()
     with _profile(config, device) as prof:
         if mode.casefold() == "fit":

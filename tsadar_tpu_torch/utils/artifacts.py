@@ -17,13 +17,15 @@ the same paths relative to the run's artifact directory (``td``, which holds
 * ``save_sigmas_fe`` (``plotters.save_sigmas_fe``): ``binary/sigmas_fe.npz``
   and ``binary/sigma-fe.nc``;
 * ``save_dist``: ``binary/distribution_function.npz``, the EDF that
-  ``plotters.plot_dist`` draws into ``plots/distribution_function.png``.
+  ``plotters.plot_dist`` draws into ``plots/distribution_function.png`` (a
+  file of the port's own).
 
-No figures: the card's machine has neither matplotlib nor pandas.  The CSVs
-are written with the ``csv`` module in the layout of pandas' ``to_csv``: a
-leading index column with an empty header, every value as numpy prints it
-(``repr`` of a float), an empty cell for a missing one, so a reader of the
-JAX package's CSVs reads these unchanged.
+The figures these JAX functions draw are drawn by ``utils.plotting.plotters``,
+where matplotlib imports (the card's machine has none).  That machine has
+no pandas either: the CSVs are written with the ``csv`` module in the
+layout of pandas' ``to_csv``: a leading index column with an empty header,
+every value as numpy prints it (``repr`` of a float), an empty cell for a
+missing one, so a reader of the JAX package's CSVs reads these unchanged.
 
 Two departures, both recorded in ROADMAP.md §3: the sigma columns are named
 after the leaf in their place (``postprocess.sigma_names``), where the JAX
@@ -93,29 +95,59 @@ def get_final_params(config, all_params, all_axes, td=None):
     return lead | params | dist
 
 
+FEATURES = (("ele", "e_data", "epw", "pixelE"), ("ion", "i_data", "iaw", "pixelI"))
+
+
+def feature_data(fits, all_data, species, dkey):
+    """(data, fit) of a feature as 2-D arrays, or None where it holds no data (not loaded: zeros)."""
+    data = np.atleast_2d(np.asarray(all_data[dkey]))
+    fit = fits[species]["total_spec"] if isinstance(fits[species], dict) else np.asarray(fits[species])
+    if data.size <= 1 or np.all(data == 0):
+        return None
+    return data, np.atleast_2d(np.asarray(fit))
+
+
+def calibrated_axes(config, all_axes, axis, pixkey, shape):
+    """(the lineouts' x values, the wavelengths) of a feature where the calibrated axes fit data of ``shape``, else
+    None (synthetic data that never went through prepare_data has none)."""
+    try:
+        pix = np.asarray(config["data"]["lineouts"][pixkey], int)
+        xvals = np.squeeze(np.asarray(all_axes[f"{axis}_x"]))[pix]
+        yvals = np.squeeze(np.asarray(all_axes[f"{axis}_y"]))
+    except (KeyError, IndexError, TypeError):
+        return None
+    return (xvals, yvals) if shape == (xvals.size, yvals.size) else None
+
+
+def window_axes(config, all_axes, data, fit):
+    """(the window's angles, the wavelengths, the image's window) of an ARTS image where they fit ``fit``, else
+    None."""
+    sl = slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"])
+    try:
+        xvals = np.squeeze(np.asarray(all_axes["epw_x"]))[sl]
+        yvals = np.squeeze(np.asarray(all_axes["epw_y"]))
+        windowed = data[sl]
+    except (KeyError, IndexError, TypeError):
+        return None
+    return (xvals, yvals, windowed) if windowed.shape == fit.shape == (xvals.size, yvals.size) else None
+
+
 def plot_ts_data(config, fits, all_data, all_axes, td):
     """Data and fit of each loaded feature: ``binary/{ele,ion}_fit_and_data.npz``, and the ``.nc`` over the
     lineouts' x values and the wavelengths where the calibrated axes fit the data.  Returns
     ``{feature: {"data", "fit"}}``."""
     savedata = {}
-    for species, dkey, axis, pixkey in (("ele", "e_data", "epw", "pixelE"), ("ion", "i_data", "iaw", "pixelI")):
-        data = np.atleast_2d(np.asarray(all_data[dkey]))
-        fit = fits[species]["total_spec"] if isinstance(fits[species], dict) else np.asarray(fits[species])
-        fit = np.atleast_2d(np.asarray(fit))
-        if data.size <= 1 or np.all(data == 0):
+    for species, dkey, axis, pixkey in FEATURES:
+        both = feature_data(fits, all_data, species, dkey)
+        if both is None:
             continue
+        data, fit = both
         savedata[species] = {"data": data, "fit": fit}
         np.savez(os.path.join(td, "binary", f"{species}_fit_and_data.npz"), data=data, fit=fit)
-        try:
-            pix = np.asarray(config["data"]["lineouts"][pixkey], int)
-            xvals = np.squeeze(np.asarray(all_axes[f"{axis}_x"]))[pix]
-            yvals = np.squeeze(np.asarray(all_axes[f"{axis}_y"]))
-        except (KeyError, IndexError, TypeError):
-            continue  # synthetic data that never went through prepare_data: no calibrated axes
-        if data.shape != (xvals.size, yvals.size):
-            continue
-        write_dataset(os.path.join(td, "binary", f"{species}_fit_and_data.nc"), {"fit": fit, "data": data},
-                      [(all_axes.get("x_label", "lineout"), xvals), ("Wavelength", yvals)])
+        axes = calibrated_axes(config, all_axes, axis, pixkey, data.shape)
+        if axes is not None:
+            write_dataset(os.path.join(td, "binary", f"{species}_fit_and_data.nc"), {"fit": fit, "data": data},
+                          [(all_axes.get("x_label", "lineout"), axes[0]), ("Wavelength", axes[1])])
     return savedata
 
 
@@ -145,16 +177,11 @@ def plot_data_angular(config, fits, all_data, all_axes, td):
     data = np.atleast_2d(np.asarray(all_data["e_data"]))
     fit = np.atleast_2d(np.asarray(fits["ele"]))
     np.savez(os.path.join(td, "binary", "angular_fit_and_data.npz"), data=data, fit=fit)
-    sl = slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"])
-    try:
-        xvals = np.squeeze(np.asarray(all_axes["epw_x"]))[sl]
-        yvals = np.squeeze(np.asarray(all_axes["epw_y"]))
-        windowed = data[sl]
-        if windowed.shape == fit.shape == (xvals.size, yvals.size):
-            write_dataset(os.path.join(td, "binary", "fit_and_data.nc"), {"fit": fit, "data": windowed},
-                          [(all_axes.get("x_label", "Scattering angle (degrees)"), xvals), ("Wavelength", yvals)])
-    except (KeyError, IndexError, TypeError):
-        pass
+    window = window_axes(config, all_axes, data, fit)
+    if window is not None:
+        xvals, yvals, windowed = window
+        write_dataset(os.path.join(td, "binary", "fit_and_data.nc"), {"fit": fit, "data": windowed},
+                      [(all_axes.get("x_label", "Scattering angle (degrees)"), xvals), ("Wavelength", yvals)])
     return {"data": data, "fit": fit}
 
 

@@ -38,18 +38,22 @@ Counterpart of ``tsadar_tpu.utils.process.postprocess``:
 * ``postprocess`` and ``process_data``: the refits, then the recalculation,
   the final parameters, and the run's files (``utils.artifacts``: the CSVs of
   the fitted parameters and the sigmas, the data and fits as ``.npz`` and
-  ``.nc``), written into a temporary directory with ``csv/`` and ``binary/``
-  and logged to the tracker (``utils.mlflow_shim``) with the JAX package's
-  metric names and status tags: ``number of fits``, ``number of refits``,
-  ``refitting time``, ``recalc_arrayloss_time``, ``recalc_hessian_time``,
-  ``postprocessing time`` (refits and recalculation, the Hessian inside it),
-  ``plotting time`` (the writing of the files; the name is kept so that
-  dashboards line up) and the tags ``plotting`` and ``done plotting``.
+  ``.nc``; ``utils.plotting.plotters``: the figures, in ``plots/``), written
+  in the JAX package's order into a temporary directory with ``plots/``,
+  ``csv/`` and ``binary/`` and logged to the tracker (``utils.mlflow_shim``)
+  with the JAX package's metric names and status tags: ``number of fits``,
+  ``number of refits``, ``refitting time``, ``recalc_arrayloss_time``,
+  ``recalc_hessian_time``, ``postprocessing time`` (refits and
+  recalculation, the Hessian inside it), ``plotting time`` (the writing of
+  the files and the figures) and the tags ``plotting`` and ``done plotting``.
 
-Left out: the figures (the card's machine has no matplotlib).  Timings, and the fitted spectra with
-their breakdown, also go into an optional ``record`` dict, unrounded.  Where
-the JAX package logs a breakdown that fails and goes on, the port lets the
-failure stand.
+The figures are drawn where ``utils.plotting.figures()`` says so: a run is
+open and matplotlib imports (the card's machine has none; the run's tag
+``figures`` then says why, and every other file is written as before).
+Timings, and the fitted spectra with their breakdown, also go into an
+optional ``record`` dict, unrounded.  Where the JAX package logs a breakdown
+that fails and goes on, the port lets the failure stand; a figure that fails
+raises, as in the JAX package.
 """
 
 import copy
@@ -64,8 +68,10 @@ from ...core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
 from ...core.physics.interp import plain_forms
 from .. import artifacts
 from .. import mlflow_shim as mlflow
+from .. import plotting
 from ..config import flatten, unflatten
 from ..console import log_info
+from ..plotting import plotters
 from .batches import angular_batch, to_numpy
 
 
@@ -314,8 +320,8 @@ def _write_slot(tgt, src, slot, bs):
 
 def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record=None):
     """The refits (``other.refit``), then ``process_data``: the final parameters
-    (``utils.artifacts.get_final_params``), with the run's files written into a temporary directory and logged
-    as the run's artifacts; for ``angular_full`` no refits, and ``process_angular_data``.  Outside a run the
+    (``utils.artifacts.get_final_params``), with the run's files and figures written into a temporary directory
+    and logged as the run's artifacts; for ``angular_full`` no refits, and ``process_angular_data``.  Outside a run the
     tracker would drop them: no file is written."""
     angular = config["other"]["extraoptions"]["spectype"] == "angular_full"
     t0 = time.perf_counter()
@@ -337,7 +343,7 @@ def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_
         t1, final_params = process(None)
     else:
         with tempfile.TemporaryDirectory() as td:
-            for dirname in ("binary", "csv"):
+            for dirname in ("plots", "binary", "csv") if plotting.figures() else ("binary", "csv"):
                 os.makedirs(os.path.join(td, dirname), exist_ok=True)
             t1, final_params = process(td)
             mlflow.log_artifacts(td)
@@ -351,12 +357,13 @@ def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_
 
 def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, losses_init, t1, td, record=None):
     """The recalculation with sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None,
-    the files of ``utils.artifacts`` in ``td``: ``(the time the files' writing began, final parameters)``.  ``t1`` is the
+    the files of ``utils.artifacts`` and the figures of ``utils.plotting.plotters`` (where
+    ``utils.plotting.figures()`` says so) in ``td``: ``(the time the files' writing began, final parameters)``.  ``t1`` is the
     ``perf_counter`` time the postprocess began: ``postprocessing time`` runs from it.  ``record`` gets the
     losses before and after the refits, the fitted spectra (``fits``, with the breakdown when asked for) and
     the seconds of the recalculation."""
     t0 = time.perf_counter()
-    losses, _, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
+    losses, sqdevs, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
         config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], fitted_weights, record
     )
     if len(losses_init) == 0:
@@ -369,9 +376,16 @@ def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_wei
     t_files = time.perf_counter()
     names = sigma_names(config, fitted_weights[0])
     final_params = artifacts.get_final_params(config, all_params, all_axes, td)
-    if td is not None:
+    if td is not None:  # the files and figures in the JAX package's order
+        draw = plotting.figures()
+        red_losses = plotters.plot_loss_hist(config, losses_init, losses, 1.0, td) if draw else None
         artifacts.plot_ts_data(config, fits, all_data, all_axes, td)
-        artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
+        if draw:
+            plotters.plot_ts_data(config, fits, all_data, all_axes, td)
+            plotters.detailed_lineouts(config, all_data, all_axes, fits, losses, red_losses, sqdevs, td)
+        sigma_ds = artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
+        if draw:
+            plotters.plot_final_params(config, all_params, sigma_ds, td)
     if config["other"]["calc_sigmas"]:
         final_params["sigmas"] = dict(zip(names, sigmas.T))
     return t_files, final_params
@@ -380,10 +394,10 @@ def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_wei
 def process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, t1, td, record=None):
     """``process_data`` of an ARTS fit (one unbatched set of parameters, ``fitted_weights``): the recalculation with
     sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None, the angular files of
-    ``utils.artifacts``: the image and its fit, the sigmas as ``sigmas_fe`` and the EDF.  Returns ``(the time the
+    ``utils.artifacts`` (the image and its fit, the sigmas as ``sigmas_fe`` and the EDF) and their figures.  Returns ``(the time the
     files' writing began, final parameters)``; ``record`` as in ``process_data``."""
     t0 = time.perf_counter()
-    losses, _, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
+    losses, sqdevs, num_params, fits, sigmas, all_params = recalculate_with_chosen_weights(
         config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], [fitted_weights], record
     )
     mlflow.log_metrics({"postprocessing time": round(time.perf_counter() - t1, 2)})
@@ -392,11 +406,17 @@ def process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fi
         record.update(losses=losses, fits=fits, sigmas=sigmas, postprocessing_seconds=time.perf_counter() - t0)
     t_files = time.perf_counter()
     final_params = artifacts.get_final_params(config, all_params, all_axes, td)
-    if td is not None:
-        artifacts.plot_data_angular(config, fits, all_data, all_axes, td)
+    if td is not None:  # the files and figures in the JAX package's order
+        draw = plotting.figures()
+        savedata = artifacts.plot_data_angular(config, fits, all_data, all_axes, td)
+        if draw:
+            plotters.plot_data_angular(config, fits, all_data, all_axes, td)
+            plotters.plot_ang_lineouts(num_params, sqdevs, losses, all_params, all_axes, savedata, td)
         if config["other"]["calc_sigmas"]:
             artifacts.save_sigmas_fe(final_params, None, sigmas, td)
         artifacts.save_dist(final_params, td)
+        if draw:
+            plotters.plot_dist(config, "electron", final_params, None, td)
     if config["other"]["calc_sigmas"]:
         final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights), sigmas.T))
     return t_files, final_params

@@ -10,9 +10,11 @@ With ``feature_detector.estimate_lineouts_iaw`` and/or ``_epw`` the lineout
 range and the fit windows come from the frames (``feature_detector``, which
 reproduces the JAX package's OpenCV detector in numpy and scipy); otherwise
 the lineout pixels come from ``data.lineouts.val``
-(``inverse.fitter._lineout_selection``).  The raw-data visualizer
-(``data.launch_data_visualizer``) only draws figures (matplotlib), which the
-port leaves out everywhere: it is logged and skipped.
+(``inverse.fitter._lineout_selection``).  With ``data.launch_data_visualizer``
+the raw frames are drawn with their fit windows and lineouts
+(``utils.data_handling.data_visualizer``) after the lineouts, as the JAX
+package draws them, where ``utils.plotting.figures()`` says so (a run is
+open and matplotlib imports; else the run's ``figures`` tag says why).
 """
 
 import os
@@ -20,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 
+from .. import plotting
+from ..data_handling.data_visualizer import launch_data_visualizer
 from ..data_handling.load_ts_data import loadData
 from ..calibration import get_calibrations, get_scattering_angles
 from .correct_throughput import correctThroughput
@@ -64,12 +68,6 @@ def _block_means_2d(image, row_width, col_width):
     col_counts = np.diff(np.append(col_starts, image.shape[1]))
     summed = np.add.reduceat(np.add.reduceat(image, row_starts, axis=0), col_starts, axis=1)
     return summed / (row_counts[:, None] * col_counts[None, :])
-
-
-def _log_skipped_visualizer(config):
-    """The raw-data visualizer draws figures only, which the port does not produce: it is logged and skipped."""
-    if config["data"].get("launch_data_visualizer", False):
-        log_info("data.launch_data_visualizer: the port produces no figures; the raw-data visualizer is skipped")
 
 
 def _axis_value(axis, index, what, buffer_key=None):
@@ -183,8 +181,6 @@ def prepare_data(config: Dict, shotNum: int):
     """Returns (all_data, sa, all_axes); mutates config with derived quantities."""
     from .warpcorr import reset_fiducial_cache
 
-    _log_skipped_visualizer(config)
-
     # fiducial-map reuse (signal frame -> tracerless background frame) is
     # scoped to THIS shot's loads; see warpcorr._FIDUCIAL_MAPS_CACHE
     reset_fiducial_cache()
@@ -227,6 +223,9 @@ def prepare_data(config: Dict, shotNum: int):
             elecData, ionData, BGele, BGion, axisxE, axisxI, axisyE, axisyI,
             config["data"]["ele_t0"], config["data"]["ion_t0_shift"], xlab, sa, config,
         )
+
+    if config["data"].get("launch_data_visualizer", False) and plotting.figures():
+        launch_data_visualizer(elecData, ionData, all_axes, config)
 
     config["other"]["PhysParams"]["widIRF"] = stddev
     config["other"]["lamrangE"] = [axisyE[0], axisyE[-1]]
