@@ -2337,17 +2337,18 @@ class tracker_root:
 
 
 # the child of cli_forward_subprocess: the command line as ``python -m tsadar_tpu_torch`` runs it, then the
-# launch counts of the wrappers named in its first argument, on stderr after LAUNCH_MARK.  The counts start at 0
+# launch counts of the kernels named in its first argument, on stderr after LAUNCH_MARK.  The counts start at 0
 # with the process, and the forward mode is all the child does.
 LAUNCH_MARK = "chip_smoke launches:"
 CLI_CHILD = f"""
-import importlib, json, runpy, sys
+import json, runpy, sys
 names = json.loads(sys.argv.pop(1))
 module = sys.argv.pop(1)
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
-    counts = {{k: getattr(importlib.import_module(m), f).launches for k, (m, f) in names.items()}}
+    from tsadar_tpu_torch.utils import trace
+    counts = {{k: trace.counters().get(f"ops.launches[{{k}}]", 0) for k in names}}
     print("{LAUNCH_MARK}", json.dumps(counts), file=sys.stderr)
 """
 
@@ -2384,7 +2385,7 @@ def cli_forward_subprocess(wrappers, smi):
 
     import torch
 
-    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    names = json.dumps(list(wrappers))
     with tracker_root() as tmp:
         env = dict(os.environ)
         t0 = time.perf_counter()
@@ -2843,7 +2844,7 @@ def resume_from(tmp, ckpt, latest, wrappers):
     epochs = latest + ARTS_RESUME_EPOCHS
     deck = write_decks(tmp / f"arts1v_resume_{latest}", *arts_1v_decks(epochs, calc_sigmas=False, checkpoint_dir=str(ckpt),
                                                                         checkpoint_freq=ARTS_1V_CKPT_FREQ))
-    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    names = json.dumps(list(wrappers))
     runs = tmp / "cli_runs"
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-c", CLI_CHILD, names, "tsadar_tpu_torch", "--cfg", str(deck), "--mode", "fit"], cwd=ROOT,
@@ -3485,7 +3486,7 @@ def run_bo_subprocess(wrappers, smi):
     Returns the child's launches."""
     import os
 
-    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    names = json.dumps(list(wrappers))
     defaults, inputs = main_deck_pair()
     inputs.setdefault("data", {})["launch_data_visualizer"] = False
     with tracker_root() as tmp:
@@ -3532,7 +3533,7 @@ DIST_MARK = "chip_smoke rank:"
 # fitter.fit's record kept, init_process_group noted and the data that rank 0 prepared written (pickled all_data and
 # sa), then (on stderr after DIST_MARK) the rank's kernel launches, collectives, backend and the adam loop's losses
 DIST_CLI_CHILD = f"""
-import importlib, json, os, pickle, runpy, sys
+import json, os, pickle, runpy, sys
 import torch.distributed as dist
 names = json.loads(sys.argv.pop(1))
 module = sys.argv.pop(1)
@@ -3555,7 +3556,8 @@ fitter.load_data_for_fitting = noted_prepare
 try:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
-    counts = {{k: getattr(importlib.import_module(m), f).launches for k, (m, f) in names.items()}}
+    from tsadar_tpu_torch.utils import trace
+    counts = {{k: trace.counters().get(f"ops.launches[{{k}}]", 0) for k in names}}
     adam = captured.get("adam", {{}})
     print("{DIST_MARK}", json.dumps({{"rank": int(os.environ.get("RANK", "0")), "launches": counts, "collectives": par.COUNTS,
           "group": group, "losses": adam.get("losses"), "chunk_seconds": adam.get("chunk_seconds")}}), file=sys.stderr, flush=True)
@@ -3570,7 +3572,8 @@ sys.exit(chip_smoke.dist_worker(sys.argv[2], sys.argv[3]))
 
 
 def kernel_wrappers():
-    """{name: the raw kernel wrapper} of every kernel of the port (each counts its launches in ``.launches``)."""
+    """{name: the raw kernel wrapper} of every kernel of the port, by the name of the C function it launches (whose
+    launches ``ops.build.launch`` counts as ``ops.launches[<name>]``)."""
     from tsadar_tpu_torch.ops import chi_bilinear, cubic_lookup, lin_lookup, pv_tables, spectrum_tail
 
     return {
@@ -3593,16 +3596,15 @@ def kernel_wrappers():
 def launch_sizes(wrappers):
     """Wrap each raw kernel wrapper in its module so that every launch notes the leading size of its first operand
     (the rows of a 1V kernel, the queries of K7 and K8, the table rows of the layout step): (the wrappers by name,
-    each counting its launches in ``.launches`` as the one it wraps did, {name: [sizes]})."""
+    {name: [sizes]})."""
     import importlib
 
     sizes, noted_wrappers = {k: [] for k in wrappers}, {}
     for k, fn in wrappers.items():
         def noted(*args, _fn=fn, _k=k, **kwargs):
             sizes[_k].append(int(args[0].shape[0]))
-            return _fn(*args, **kwargs)  # which adds one to the module's wrapper, this one
+            return _fn(*args, **kwargs)
 
-        noted.launches = 0
         setattr(importlib.import_module(fn.__module__), fn.__name__, noted)
         noted_wrappers[k] = noted
     return noted_wrappers, sizes
@@ -3639,7 +3641,7 @@ def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
     from tsadar_tpu_torch import LossFunction
     from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
 
-    names = json.dumps({k: (fn.__module__, fn.__name__) for k, fn in wrappers.items()})
+    names = json.dumps(list(wrappers))
     defaults, inputs = whole_shot_decks()
     inputs["optimizer"]["parallel"] = True
     inputs["other"]["calc_sigmas"] = False
@@ -3972,10 +3974,12 @@ REAL_FIT_KERNELS = tuple(k for k in KERNELS if k not in ARTS_KERNELS + PADDED_KE
 
 
 def read_and_zero(wrappers):
-    counts = {k: fn.launches for k, fn in wrappers.items()}
-    for fn in wrappers.values():
-        fn.launches = 0
-    return counts
+    """{name: launches} of each kernel named in ``wrappers`` since the last call, and the counters zeroed."""
+    from tsadar_tpu_torch.utils import trace
+
+    launches = trace.counters()
+    trace.clear()
+    return {k: launches.get(f"ops.launches[{k}]", 0) for k in wrappers}
 
 
 def main():

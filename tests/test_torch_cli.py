@@ -213,6 +213,9 @@ def test_the_profile_option_logs_a_torch_trace(tmp_path, monkeypatch):
     run_id = runner.run(str(_write_decks(tmp_path / "cfg", defaults, inputs)), "forward", device="cpu")
     trace = _run_dir(tmp_path / "runs", run_id) / "artifacts" / "torch_trace" / "trace.json"
     assert trace.is_file() and "traceEvents" in json.loads(trace.read_text())
+    # the port's spans are named ranges in the user's trace: the layers show
+    names = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"diagnostic", "form_factor", "spectrum", "irf", "series", "series.entry"} <= names
 
 
 # the child of the multihost case: init_process_group wrapped to count its calls and to note whether a run was

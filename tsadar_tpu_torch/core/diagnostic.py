@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, working_dtype
+from ..utils import trace
 from ..utils.console import log_info
 from .physics import irf
 from .physics.spectrum import SpectrumModel
@@ -190,12 +191,18 @@ class ThomsonScatteringDiagnostic(nn.Module):
         return self.spectra(ts_params(), batch)
 
     def spectra(self, physical_params, batch):
-        """The forward model from the physical parameters ``ts_params()``."""
+        """The forward model from the physical parameters ``ts_params()``: the span ``diagnostic``, with
+        ``spectrum`` and ``irf`` inside it."""
+        with trace.span("diagnostic"):
+            return self._spectra(physical_params, batch)
+
+    def _spectra(self, physical_params, batch):
         modlE, modlI, lamAxisE, lamAxisI = self.model(physical_params)
         amps = {k: self._tensor(batch[k]) for k in ("e_amps", "i_amps")}
-        ThryE, ThryI, lamAxisE, lamAxisI = self.postprocess_theory(
-            modlE, modlI, lamAxisE, lamAxisI, amps, physical_params
-        )
+        with trace.span("irf"):
+            ThryE, ThryI, lamAxisE, lamAxisI = self.postprocess_theory(
+                modlE, modlI, lamAxisE, lamAxisI, amps, physical_params
+            )
         if not self.batched:
             if self.angular:
                 ThryE, lamAxisE = self.reduce_ATS_to_resunit(ThryE, lamAxisE, physical_params, batch)

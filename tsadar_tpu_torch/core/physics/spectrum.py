@@ -29,6 +29,7 @@ from typing import Dict
 
 import torch
 
+from ...utils import trace
 from .form_factor import FormFactor, _batch_of_one
 
 PROBE_NOTCH_HALF_WIDTH_NM = 3.0  # iawoff notch about the probe line
@@ -65,12 +66,12 @@ class SpectrumModel:
         """(reduced spectrum, wavelength axis [L] in nm) of one feature; ``image``: the ARTS
         [fine angle, wavelength] image through the weight matrix instead of the weighted angle sum."""
         if self.dim == 1 and not self.angular_full:
-            if self.batched:
-                reduced, lam_axis = form_factor.reduced_1v(all_params, self.weight)
-                return reduced, lam_axis * 1e7
-            reduced, lam_axis = form_factor.reduced_1v(_batch_of_one(all_params), self.weight)
-            return reduced[0], lam_axis * 1e7
-        skw, lam_axis = self._unreduced(form_factor, all_params)  # [G, L, A]
+            with trace.span("form_factor"):
+                reduced, lam_axis = form_factor.reduced_1v(all_params if self.batched else _batch_of_one(all_params),
+                                                           self.weight)
+            return (reduced if self.batched else reduced[0]), lam_axis * 1e7
+        with trace.span("form_factor"):
+            skw, lam_axis = self._unreduced(form_factor, all_params)  # [G, L, A]
         grad_averaged = torch.mean(skw, dim=0)
         if image:
             return torch.matmul(self.weight_matrix, grad_averaged.T), lam_axis * 1e7
@@ -83,8 +84,9 @@ class SpectrumModel:
         unbatched parameters); a 2V ``angular_full`` electron feature is the
         image [fine angles, L].
         """
-        lam_axis_ion, ion_reduced = self.ion_spectrum(all_params)
-        lam_axis_ele, ele_reduced = self.electron_spectrum(all_params)
+        with trace.span("spectrum"):
+            lam_axis_ion, ion_reduced = self.ion_spectrum(all_params)
+            lam_axis_ele, ele_reduced = self.electron_spectrum(all_params)
         return ele_reduced, ion_reduced, lam_axis_ele, lam_axis_ion
 
     def _off(self, all_params):

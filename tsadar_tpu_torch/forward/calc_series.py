@@ -29,7 +29,6 @@ and ranges but on no parameter that a series sets.
 
 import os
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -38,7 +37,7 @@ from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params import ThomsonParams
 from ..utils import artifacts
 from ..utils import mlflow_shim as mlflow
-from ..utils import plotting
+from ..utils import plotting, trace
 from ..utils.calibration import get_calibrations, get_scattering_angles
 from ..utils.ncwriter import write_dataset
 from ..utils.plotting import plotters
@@ -114,22 +113,22 @@ def forward_pass(config, device=None, record=None, dtype=None):
     ThryE, ThryI, lamAxisE, lamAxisI = ([None] * serieslen for _ in range(4))
     entry_seconds = []
     ts_diag = ts_params = None
-    t_start = time.perf_counter()
-    with torch.no_grad():
+    with trace.timed("series") as series, torch.no_grad():
         for i in range(serieslen):
-            t0 = time.perf_counter()
-            if "series" in config:
-                for p in (1, 2, 3, 4):
-                    if f"param{p}" in config["series"]:
-                        _set_series_param(config["parameters"], config["series"][f"param{p}"], config["series"][f"vals{p}"][i])
-            if ts_diag is None:
-                ts_diag = ThomsonScatteringDiagnostic(config, sas, device=device, dtype=dtype)
-            ts_params = ThomsonParams.create(config["parameters"], 1, device=ts_diag.device, dtype=ts_diag.dtype,
-                                             batch=not is_angular)
-            out = ts_diag(ts_params, dummy_batch)
-            ThryE[i], ThryI[i], lamAxisE[i], lamAxisI[i] = (t.detach().cpu().numpy() for t in out)
-            entry_seconds.append(time.perf_counter() - t0)
-    spectime = time.perf_counter() - t_start
+            with trace.timed("series.entry") as entry:
+                if "series" in config:
+                    for p in (1, 2, 3, 4):
+                        if f"param{p}" in config["series"]:
+                            _set_series_param(config["parameters"], config["series"][f"param{p}"],
+                                              config["series"][f"vals{p}"][i])
+                if ts_diag is None:
+                    ts_diag = ThomsonScatteringDiagnostic(config, sas, device=device, dtype=dtype)
+                ts_params = ThomsonParams.create(config["parameters"], 1, device=ts_diag.device, dtype=ts_diag.dtype,
+                                                 batch=not is_angular)
+                out = ts_diag(ts_params, dummy_batch)
+                ThryE[i], ThryI[i], lamAxisE[i], lamAxisI[i] = (t.detach().cpu().numpy() for t in out)
+            entry_seconds.append(entry.seconds)
+    spectime = series.seconds
     ThryE, ThryI, lamAxisE, lamAxisI = (np.array(a) for a in (ThryE, ThryI, lamAxisE, lamAxisI))
 
     draw = plotting.figures()

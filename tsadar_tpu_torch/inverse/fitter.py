@@ -25,12 +25,11 @@ the work), and rank 0 alone runs the postprocess and writes the run's files, as
 the JAX package's postprocess runs unsharded.
 """
 
-import time
-
 import numpy as np
 
 from ..parallel import dist as par
 from ..utils import mlflow_shim as mlflow
+from ..utils import trace
 from ..utils.console import log_info
 from ..utils.process import postprocess, prepare
 from .loops import angular_optax, one_d_loop
@@ -113,42 +112,43 @@ def fit(config, device=None, record=None):
     """
     record = {} if record is None else record
 
-    stage_start = time.perf_counter()
-    mlflow.set_tag("status", "preprocessing")
-    config = _lineout_selection(config)
-    all_data, sa, all_axes = _prepared(config)
-    n_samples = max(len(all_data["e_data"]), len(all_data["i_data"]))
-    sample_indices = np.arange(n_samples)
-    num_batches = n_samples // config["optimizer"]["batch_size"] or 1
-    record["setup_seconds"] = time.perf_counter() - stage_start
+    with trace.timed("stage.prepare") as stage:
+        mlflow.set_tag("status", "preprocessing")
+        config = _lineout_selection(config)
+        all_data, sa, all_axes = _prepared(config)
+        n_samples = max(len(all_data["e_data"]), len(all_data["i_data"]))
+        sample_indices = np.arange(n_samples)
+        num_batches = n_samples // config["optimizer"]["batch_size"] or 1
+    record["setup_seconds"] = stage.seconds
     mlflow.log_metrics({"setup_time": round(record["setup_seconds"], 2)})
     log_info(f"setup: {record['setup_seconds']:.2f} s")
 
-    stage_start = time.perf_counter()
-    mlflow.set_tag("status", "minimizing")
-    log_info("minimizing")
-    if "angular" in config["other"]["extraoptions"]["spectype"]:
-        fitted_weights, overall_loss, loss_fn = angular_optax(config, all_data, sa, device=device,
-                                                              record=record.setdefault("angular", {}))
-    else:
-        method = config["optimizer"]["method"]
-        loop_record = record.setdefault(method if method in ("adam", "lbfgs") else "scipy", {})
-        fitted_weights, overall_loss, loss_fn = one_d_loop(
-            config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
-        )
-    record["fit_seconds"] = time.perf_counter() - stage_start
+    with trace.timed("stage.fit") as stage:
+        mlflow.set_tag("status", "minimizing")
+        log_info("minimizing")
+        if "angular" in config["other"]["extraoptions"]["spectype"]:
+            fitted_weights, overall_loss, loss_fn = angular_optax(config, all_data, sa, device=device,
+                                                                  record=record.setdefault("angular", {}))
+        else:
+            method = config["optimizer"]["method"]
+            loop_record = record.setdefault(method if method in ("adam", "lbfgs") else "scipy", {})
+            fitted_weights, overall_loss, loss_fn = one_d_loop(
+                config, all_data, sa, sample_indices, num_batches, device=device, record=loop_record
+            )
+    record["fit_seconds"] = stage.seconds
     mlflow.log_metrics({"overall loss": float(overall_loss)})
     mlflow.log_metrics({"fit_time": round(record["fit_seconds"], 2)})
     log_info(f"fit: {record['fit_seconds']:.2f} s, overall loss {float(overall_loss):.6g}")
 
     if not mlflow.writer():  # the postprocess writes the run's files: rank 0's
         return None, float(overall_loss)
-    stage_start = time.perf_counter()
-    mlflow.set_tag("status", "postprocessing")
-    log_info("postprocessing")
-    with par.local():
-        final_params = postprocess.postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights, record)
-    record["postprocess_seconds"] = time.perf_counter() - stage_start
+    with trace.timed("stage.postprocess") as stage:
+        mlflow.set_tag("status", "postprocessing")
+        log_info("postprocessing")
+        with par.local():
+            final_params = postprocess.postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_weights,
+                                                   record)
+    record["postprocess_seconds"] = stage.seconds
     mlflow.log_metrics({"postprocess_time": round(record["postprocess_seconds"], 2)})
     log_info(f"postprocess: {record['postprocess_seconds']:.2f} s")
     return final_params, float(overall_loss)

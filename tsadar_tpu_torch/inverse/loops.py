@@ -40,7 +40,6 @@ import copy
 import os
 import pickle
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -48,6 +47,7 @@ import torch
 from ..core.params.ts_params import ThomsonParams, get_filter_spec, jax_path, ravel_order
 from ..parallel import dist as par
 from ..utils import mlflow_shim as mlflow
+from ..utils import trace
 from ..utils.console import log_info
 from ..utils.process.batches import angular_batch, to_numpy
 from . import lbfgs
@@ -131,68 +131,73 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
     selects by the rank's own rows, and the parameters returned hold every
     rank's rows.
     """
-    t_enter = time.perf_counter()
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
-    full = _init_params(config, previous_weights, device=dev, dtype=dtype)
-    per_lineout = config["optimizer"].get("track_best", "overall") == "per_lineout"
-
     num_epochs = config["optimizer"]["num_epochs"]
-    if num_epochs == 0:
-        return np.inf, full
+    with trace.span("fit", method="adam", B=batch["e_data"].shape[0]):
+        with trace.timed("fit.init") as init:
+            full = _init_params(config, previous_weights, device=dev, dtype=dtype)
+            per_lineout = config["optimizer"].get("track_best", "overall") == "per_lineout"
+            if num_epochs == 0:
+                return np.inf, full
 
-    ts_params, batch, mask = _shard(config, full, batch, ranks)
-    trainable = get_filter_spec(config["parameters"], ts_params)
-    leaves = list(trainable.values())
-    replicated = _replicated(trainable, ts_params, mask)
-    batch = loss_fn.device_batch(batch)  # once per fit, not per step
-    opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"])
-    best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
-    best_rows = torch.full((batch["e_data"].shape[0],), np.inf, dtype=dtype, device=dev)
-    best = [p.detach().clone() for p in leaves]
+            ts_params, batch, mask = _shard(config, full, batch, ranks)
+            trainable = get_filter_spec(config["parameters"], ts_params)
+            leaves = list(trainable.values())
+            replicated = _replicated(trainable, ts_params, mask)
+            batch = loss_fn.device_batch(batch)  # once per fit, not per step
+            opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"])
+            best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
+            best_rows = torch.full((batch["e_data"].shape[0],), np.inf, dtype=dtype, device=dev)
+            best = [p.detach().clone() for p in leaves]
 
-    chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
-    done = 0
-    mlflow.log_metrics({"fit_param_init_time": round(time.perf_counter() - t_enter, 2)})
-    while done < num_epochs:
-        length = min(chunk, num_epochs - done)
-        t0 = time.perf_counter()
-        values = []
-        for _ in range(length):
-            t_first = time.perf_counter() if done == 0 and not values else None
-            with loss_fn.sharded(ranks):
-                (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
-            for p, g in zip(leaves, _summed_grads(list(grads.values()), replicated, ranks)):
-                p.grad = g
-            opt.step()
-            with torch.no_grad():
-                improved = value < best_loss
-                best_loss = torch.where(improved, value, best_loss)
-                if per_lineout:  # every trainable leaf is per lineout ([B]): select by the row's own loss
-                    improved = aux[2] < best_rows
-                    best_rows = torch.where(improved, aux[2], best_rows)
-                best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
-            values.append(value)
-            if t_first is not None:
-                float(value)  # the first step, read back
-                mlflow.log_metrics({"fit_first_dispatch_time": round(time.perf_counter() - t_first, 2)})
-        if record is not None:
-            losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
-            record.setdefault("losses", []).extend(losses)
-            record.setdefault("chunk_seconds", []).append(time.perf_counter() - t0)
-            record.setdefault("chunk_steps", []).append(length)
-        done += length
+        chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
+        done = 0
+        mlflow.log_metrics({"fit_param_init_time": round(init.seconds, 2)})
+        while done < num_epochs:
+            length = min(chunk, num_epochs - done)
+            with trace.timed("fit.chunk") as in_chunk:
+                values = []
+                for _ in range(length):
+                    first = done == 0 and not values
+                    with trace.timed("fit.step") as step:
+                        with loss_fn.sharded(ranks):
+                            (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+                        with trace.span("optimizer.step"):
+                            for p, g in zip(leaves, _summed_grads(list(grads.values()), replicated, ranks)):
+                                p.grad = g
+                            opt.step()
+                        with trace.span("fit.best"), torch.no_grad():
+                            improved = value < best_loss
+                            best_loss = torch.where(improved, value, best_loss)
+                            if per_lineout:  # every trainable leaf is per lineout ([B]): select by the row's own loss
+                                improved = aux[2] < best_rows
+                                best_rows = torch.where(improved, aux[2], best_rows)
+                            best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
+                    values.append(value)
+                    if first:
+                        with trace.timed("fit.readback") as readback:
+                            float(value)  # the first step, read back
+                        mlflow.log_metrics({"fit_first_dispatch_time": round(step.seconds + readback.seconds, 2)})
+                if record is not None:
+                    with trace.span("fit.readback"):
+                        losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
+            if record is not None:
+                record.setdefault("losses", []).extend(losses)
+                record.setdefault("chunk_seconds", []).append(in_chunk.seconds)
+                record.setdefault("chunk_steps", []).append(length)
+            done += length
 
-    with torch.no_grad():
-        for p, b in zip(leaves, best):
-            p.copy_(b)
-        if per_lineout:
-            # the assembled parameters mix epochs per lineout: report their actual joint loss
-            t0 = time.perf_counter()
-            with loss_fn.sharded(ranks):
-                best_loss = float(loss_fn.__loss__(ts_params, batch)[0])
-            mlflow.log_metrics({"fit_final_loss_time": round(time.perf_counter() - t0, 2)})
-    for p in leaves:
-        p.grad = None
+        with torch.no_grad():
+            for p, b in zip(leaves, best):
+                p.copy_(b)
+            if per_lineout:
+                # the assembled parameters mix epochs per lineout: report their actual joint loss
+                with trace.timed("fit.final_loss") as final:
+                    with loss_fn.sharded(ranks):
+                        best_loss = float(loss_fn.__loss__(ts_params, batch)[0])
+                mlflow.log_metrics({"fit_final_loss_time": round(final.seconds, 2)})
+        for p in leaves:
+            p.grad = None
     return float(best_loss), _unshard(ts_params, full, ranks, mask)
 
 
@@ -222,19 +227,19 @@ def _1d_scipy_loop_(config, loss_fn: LossFunction, previous_weights, batch, reco
     order = ravel_order(trainable)
     leaves = [trainable[k] for k in order]
     ad = config["optimizer"]["grad_method"] == "AD"
-    t0 = time.perf_counter()
-    res = spopt.minimize(
-        _scipy_objective(config, loss_fn, ts_params, batch, ranks, order, ad),
-        ravel(leaves),
-        method=config["optimizer"]["method"],
-        jac=ad,
-        options={"disp": config["optimizer"].get("disp", False), "maxiter": config["optimizer"]["num_epochs"]},
-    )
+    with trace.timed("fit", method=config["optimizer"]["method"], B=config["optimizer"]["batch_size"]) as fit:
+        res = spopt.minimize(
+            _scipy_objective(config, loss_fn, ts_params, batch, ranks, order, ad),
+            ravel(leaves),
+            method=config["optimizer"]["method"],
+            jac=ad,
+            options={"disp": config["optimizer"].get("disp", False), "maxiter": config["optimizer"]["num_epochs"]},
+        )
     if ranks is not None and not np.array_equal(par.broadcast_object(np.asarray(res["x"]), src=0), res["x"]):
         raise RuntimeError("the ranks' scipy iterates parted: the sharded loss or gradient differs between ranks")
     if record is not None:
         for key, val in (("message", str(res.message)), ("nit", int(res.get("nit", -1))), ("nfev", int(res.nfev)),
-                         ("success", bool(res.success)), ("seconds", time.perf_counter() - t0)):
+                         ("success", bool(res.success)), ("seconds", fit.seconds)):
             record.setdefault(key, []).append(val)
     unravel_into(res["x"], leaves)
     for p in leaves:
@@ -324,16 +329,17 @@ def _1d_device_lbfgs_loop_(config, loss_fn: LossFunction, previous_weights, batc
 
     x = torch.cat([p.detach().reshape(-1) for p in leaves])
     state, value = lbfgs.init(x), np.inf
-    t0 = time.perf_counter()
-    for _ in range(config["optimizer"]["num_epochs"]):
-        evaluations = 0
-        x, value, state = lbfgs.step(x, state, value_and_grad, dot=dot)
-        if record is not None:
-            record.setdefault("losses", []).append(value)
-            record.setdefault("evaluations", []).append(evaluations)
-            record.setdefault("stepsizes", []).append(state.learning_rate)
+    with trace.timed("fit", method="lbfgs", B=config["optimizer"]["batch_size"]) as fit:
+        for _ in range(config["optimizer"]["num_epochs"]):
+            evaluations = 0
+            with trace.span("fit.step"):
+                x, value, state = lbfgs.step(x, state, value_and_grad, dot=dot)
+            if record is not None:
+                record.setdefault("losses", []).append(value)
+                record.setdefault("evaluations", []).append(evaluations)
+                record.setdefault("stepsizes", []).append(state.learning_rate)
     if record is not None:
-        record.setdefault("seconds", []).append(time.perf_counter() - t0)
+        record.setdefault("seconds", []).append(fit.seconds)
     write(x)
     for p in leaves:
         p.grad = None
@@ -355,9 +361,9 @@ def one_d_loop(config, all_data, sa, batch_indices, num_batches, device=None, dt
     """
     method = config["optimizer"]["method"]
     bs = config["optimizer"]["batch_size"]
-    t0 = time.perf_counter()
-    loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
-    mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t0, 2)})
+    with trace.timed("fit.lossfn_init") as init:
+        loss_fn = LossFunction(config, sa, _slice_batch(all_data, slice(0, bs)), device=device, dtype=dtype)
+    mlflow.log_metrics({"fit_lossfn_init_time": round(init.seconds, 2)})
     ranks = par.fit_group(config, device)
     if ranks is not None:
         log_info(f"lineout batch data-parallel over {ranks.size} of {par.world_size()} ranks")
@@ -404,16 +410,16 @@ def angular_optax(config, all_data, sa, device=None, dtype=None, record=None):
     rotated by ``data.shot_rot``.  The tracker gets ``fit_lossfn_init_time``.
     ``record``: see ``_angular_loop_``.
     """
-    t_enter = time.perf_counter()
-    config["optimizer"]["batch_size"] = 1
-    lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
-    lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
-    sl = slice(lineouts["start"], lineouts["end"])
-    batch1 = angular_batch(all_data, sl)
-    multiplexed = isinstance(config["data"].get("shotnum"), list)
-    batch = {"b1": batch1, "b2": angular_batch(all_data, sl, rot=True)} if multiplexed else batch1
-    loss_fn = LossFunction(config, sa, batch1, device=device, dtype=dtype)
-    mlflow.log_metrics({"fit_lossfn_init_time": round(time.perf_counter() - t_enter, 2)})
+    with trace.timed("fit.lossfn_init") as init:
+        config["optimizer"]["batch_size"] = 1
+        lineouts, unit = config["data"]["lineouts"], config["other"]["ang_res_unit"]
+        lineouts["start"], lineouts["end"] = int(lineouts["start"] / unit), int(lineouts["end"] / unit)
+        sl = slice(lineouts["start"], lineouts["end"])
+        batch1 = angular_batch(all_data, sl)
+        multiplexed = isinstance(config["data"].get("shotnum"), list)
+        batch = {"b1": batch1, "b2": angular_batch(all_data, sl, rot=True)} if multiplexed else batch1
+        loss_fn = LossFunction(config, sa, batch1, device=device, dtype=dtype)
+    mlflow.log_metrics({"fit_lossfn_init_time": round(init.seconds, 2)})
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     ts_params = ThomsonParams.create(config["parameters"], 1, activate=True, device=dev, dtype=dtype, batch=False)
     epoch_loss = _angular_loop_(config, loss_fn, ts_params, batch, record=record)
@@ -474,82 +480,87 @@ def _angular_loop_(config, loss_fn: LossFunction, ts_params, batch, record=None)
 
     dev, dtype = loss_fn.ts_diag.device, loss_fn.ts_diag.dtype
     opt_cfg = config["optimizer"]
-    trainable = get_filter_spec(config["parameters"], ts_params)
-    leaves = list(trainable.values())
-    opt = optimizer(opt_cfg["method"], leaves, opt_cfg["learning_rate"])
-    ckpt_dir, ckpt_freq = opt_cfg.get("checkpoint_dir"), opt_cfg.get("checkpoint_freq", 50)
-    start_epoch = restore_checkpoint(ckpt_dir, trainable, opt) if ckpt_dir else 0
-    if start_epoch:
-        log_info(f"resumed angular fit from checkpoint at epoch {start_epoch}")
+    with trace.span("fit", method=opt_cfg["method"], B=1):
+        with trace.span("fit.init"):
+            trainable = get_filter_spec(config["parameters"], ts_params)
+            leaves = list(trainable.values())
+            opt = optimizer(opt_cfg["method"], leaves, opt_cfg["learning_rate"])
+            ckpt_dir, ckpt_freq = opt_cfg.get("checkpoint_dir"), opt_cfg.get("checkpoint_freq", 50)
+            start_epoch = restore_checkpoint(ckpt_dir, trainable, opt) if ckpt_dir else 0
+            if start_epoch:
+                log_info(f"resumed angular fit from checkpoint at epoch {start_epoch}")
 
-    batch = loss_fn.device_batch(batch)  # once per fit, not per step
-    best_loss_dev = torch.full((), 100.0, dtype=dtype, device=dev)
-    best = [p.detach().clone() for p in leaves]
-    epoch_loss, best_loss = 0.0, 100.0
-    stalled_epochs = rising_epochs = 0
-    state_weights = {}
-    chunk = max(1, int(opt_cfg.get("chunk_size", 8)))
-    num_epochs = opt_cfg["num_epochs"]
-    i_epoch, stop = start_epoch, False
-    while i_epoch < num_epochs and not stop:
-        length = min(chunk, num_epochs - i_epoch)
-        t0 = time.perf_counter()
-        values = []
-        for _ in range(length):
-            (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
-            for p, g in zip(leaves, grads.values()):
-                p.grad = g
-            opt.step()
-            with torch.no_grad():
-                improved = value < best_loss_dev
-                best_loss_dev = torch.where(improved, value, best_loss_dev)
-                best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
-            values.append(value)
-        losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
-        if i_epoch == start_epoch:
-            mlflow.log_metrics({"fit_first_dispatch_time": round(time.perf_counter() - t0, 2)})
-        n_counted = length  # the epochs a per-epoch loop would have reached
-        for j, epoch_loss in enumerate(losses):
-            mlflow.log_metrics({"epoch loss": epoch_loss}, step=i_epoch + j)
-            if epoch_loss < best_loss:
-                improvement, best_loss = best_loss - epoch_loss, epoch_loss
-                if improvement < 1e-6:
-                    stalled_epochs += 1
-                    stop = stalled_epochs > 5
+            batch = loss_fn.device_batch(batch)  # once per fit, not per step
+            best_loss_dev = torch.full((), 100.0, dtype=dtype, device=dev)
+            best = [p.detach().clone() for p in leaves]
+        epoch_loss, best_loss = 0.0, 100.0
+        stalled_epochs = rising_epochs = 0
+        state_weights = {}
+        chunk = max(1, int(opt_cfg.get("chunk_size", 8)))
+        num_epochs = opt_cfg["num_epochs"]
+        i_epoch, stop = start_epoch, False
+        while i_epoch < num_epochs and not stop:
+            length = min(chunk, num_epochs - i_epoch)
+            with trace.timed("fit.chunk") as in_chunk:
+                values = []
+                for _ in range(length):
+                    with trace.span("fit.step"):
+                        (value, _), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+                        with trace.span("optimizer.step"):
+                            for p, g in zip(leaves, grads.values()):
+                                p.grad = g
+                            opt.step()
+                        with trace.span("fit.best"), torch.no_grad():
+                            improved = value < best_loss_dev
+                            best_loss_dev = torch.where(improved, value, best_loss_dev)
+                            best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
+                    values.append(value)
+                with trace.span("fit.readback"):
+                    losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
+                if i_epoch == start_epoch:
+                    mlflow.log_metrics({"fit_first_dispatch_time": round(in_chunk.seconds, 2)})
+                n_counted = length  # the epochs a per-epoch loop would have reached
+                for j, epoch_loss in enumerate(losses):
+                    mlflow.log_metrics({"epoch loss": epoch_loss}, step=i_epoch + j)
+                    if epoch_loss < best_loss:
+                        improvement, best_loss = best_loss - epoch_loss, epoch_loss
+                        if improvement < 1e-6:
+                            stalled_epochs += 1
+                            stop = stalled_epochs > 5
+                            if stop:
+                                log_info("Minimizer exited due to change in loss < 1e-6")
+                        else:
+                            stalled_epochs = rising_epochs = 0
+                    elif epoch_loss > best_loss:
+                        rising_epochs += 1
+                        stop = rising_epochs > 5
+                        if stop:
+                            log_info("Minimizer exited due to increase in loss")
                     if stop:
-                        log_info("Minimizer exited due to change in loss < 1e-6")
-                else:
-                    stalled_epochs = rising_epochs = 0
-            elif epoch_loss > best_loss:
-                rising_epochs += 1
-                stop = rising_epochs > 5
-                if stop:
-                    log_info("Minimizer exited due to increase in loss")
-            if stop:
-                n_counted = j + 1
-                break
-        counted = range(i_epoch, i_epoch + n_counted)
-        if opt_cfg.get("save_state", False):
-            hits = [e for e in counted if e % opt_cfg["save_state_freq"] == 0]
-            if hits:
-                snap = _unnormed_snapshot(config, ts_params, best)
-                state_weights.update((e, snap) for e in hits)
-        # no checkpoint past an early stop: a resume would go on with a fit that has ended; in a process group the
-        # ranks' states are the same, and rank 0 writes them
-        if ckpt_dir and not stop and any(e % ckpt_freq == 0 for e in counted) and mlflow.writer():
-            save_checkpoint(ckpt_dir, trainable, opt, i_epoch + n_counted - 1)
-        if record is not None:
-            record.setdefault("losses", []).extend(losses[:n_counted])
-            record.setdefault("chunk_seconds", []).append(time.perf_counter() - t0)
-            record.setdefault("chunk_steps", []).append(length)
-        i_epoch += length
+                        n_counted = j + 1
+                        break
+                counted = range(i_epoch, i_epoch + n_counted)
+                if opt_cfg.get("save_state", False):
+                    hits = [e for e in counted if e % opt_cfg["save_state_freq"] == 0]
+                    if hits:
+                        snap = _unnormed_snapshot(config, ts_params, best)
+                        state_weights.update((e, snap) for e in hits)
+                # no checkpoint past an early stop: a resume would go on with a fit that has ended; in a process group
+                # the ranks' states are the same, and rank 0 writes them
+                if ckpt_dir and not stop and any(e % ckpt_freq == 0 for e in counted) and mlflow.writer():
+                    save_checkpoint(ckpt_dir, trainable, opt, i_epoch + n_counted - 1)
+                if record is not None:
+                    record.setdefault("losses", []).extend(losses[:n_counted])
+                    record.setdefault("chunk_seconds", []).append(in_chunk.seconds)
+                    record.setdefault("chunk_steps", []).append(length)
+            i_epoch += length
 
-    with torch.no_grad():
-        for p, b in zip(leaves, best):
-            p.copy_(b)
-    for p in leaves:
-        p.grad = None
-    if record is not None:
-        record["start_epoch"] = start_epoch
-    _log_state_weights(state_weights)
+        with torch.no_grad():
+            for p, b in zip(leaves, best):
+                p.copy_(b)
+        for p in leaves:
+            p.grad = None
+        if record is not None:
+            record["start_epoch"] = start_epoch
+        _log_state_weights(state_weights)
     return epoch_loss

@@ -46,6 +46,7 @@ from ..core.diagnostic import ThomsonScatteringDiagnostic
 from ..core.params.distributions import act
 from ..core.params.ts_params import get_filter_spec, ravel_order
 from ..parallel import dist as par
+from ..utils import trace
 from ..utils.vector_tools import rotate_edf
 
 
@@ -184,9 +185,10 @@ class LossFunction:
             ThryE, ThryI, lamAxisE, lamAxisI = self.ts_diag.spectra(physical, batch)
             if denom is None:
                 denom = [ThryI, ThryE]
-            i_error, e_error, sqdev, i_row, e_row = self.calc_ei_error(
-                batch, ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func
-            )
+            with trace.span("loss.reduce"):
+                i_error, e_error, sqdev, i_row, e_row = self.calc_ei_error(
+                    batch, ThryI, lamAxisI, ThryE, lamAxisE, denom, reduce_func
+                )
         ion_scale = self.cfg["data"]["ion_loss_scale"]
         total_loss = ion_scale * i_error + e_error + self.penalties(physical, ts_params)
         # the (global) penalty term is left out of the per-lineout selection criterion
@@ -211,8 +213,10 @@ class LossFunction:
         if trainable is None:
             trainable = get_filter_spec(self.cfg["parameters"], ts_params)
         with torch.enable_grad():
-            value, aux = self.__loss__(ts_params, batch)
-            grads = torch.autograd.grad(value, list(trainable.values()))
+            with trace.span("loss.forward"):
+                value, aux = self.__loss__(ts_params, batch)
+            with trace.span("loss.backward"):
+                grads = torch.autograd.grad(value, list(trainable.values()))
         aux = [aux[0].detach(), {g: {k: v.detach() for k, v in d.items()} for g, d in aux[1].items()}, aux[2].detach()]
         return (value.detach(), aux), dict(zip(trainable, grads))
 

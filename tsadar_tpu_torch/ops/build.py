@@ -19,6 +19,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import trace
+
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
@@ -115,11 +117,24 @@ def check_input(t, name, ndim, strided_rows=False):
 
 
 def launch(fn, *args, device):
-    """Run a C launcher on the current stream of ``device``; raise on a CUDA error."""
-    with torch.cuda.device(device):
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    """Run a C launcher on the current stream of ``device``; raise on a CUDA error.
+
+    Every launch adds one to the counter ``ops.launches[<C function>]`` (``utils.trace``), and is an
+    ``ops.launch`` span while a profiler runs.  A launcher may start more than one kernel (K9's and K9T's
+    share sum): the counter counts launcher calls.
+    """
+    name = fn.__name__
+    trace.count(f"ops.launches[{name}]")
+    with trace.span("ops.launch", fn=name):
+        err = _on_stream(fn, args, device)
     if err:
-        raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
+        raise RuntimeError(f"{name} failed with CUDA error {err}")
+
+
+def _on_stream(fn, args, device):
+    """``fn(*args, stream)`` on the current stream of ``device``: its CUDA error code."""
+    with torch.cuda.device(device):
+        return fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
 
 
 def on_card(*tensors):

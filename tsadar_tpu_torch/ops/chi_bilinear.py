@@ -63,11 +63,7 @@ def chi_bilinear_fwd(bq, xq, T4, meta):
     fn = build.c_function("chi_bilinear", "chi_bilinear_fwd", _FWD_ARGTYPES)
     build.launch(fn, bq.data_ptr(), xq.data_ptr(), T4.data_ptr(), meta.data_ptr(), out.data_ptr(), Q, R, nvx,
                  R / (2.0 * math.pi), device=bq.device)
-    chi_bilinear_fwd.launches += 1
     return out
-
-
-chi_bilinear_fwd.launches = 0
 
 
 def chi_bilinear_bwd(bq, xq, T, meta, g):
@@ -81,11 +77,7 @@ def chi_bilinear_bwd(bq, xq, T, meta, g):
     fn = build.c_function("chi_bilinear", "chi_bilinear_bwd", _BWD_ARGTYPES)
     build.launch(fn, bq.data_ptr(), xq.data_ptr(), T.data_ptr(), meta.data_ptr(), g.data_ptr(), dT.data_ptr(),
                  dbeta.data_ptr(), Q, R, nvx, R / (2.0 * math.pi), device=bq.device)
-    chi_bilinear_bwd.launches += 1
     return dT, dbeta
-
-
-chi_bilinear_bwd.launches = 0
 
 
 def chi_bilinear_pack(f1d, df1d, chiR):
@@ -104,11 +96,7 @@ def chi_bilinear_pack(f1d, df1d, chiR):
     fn = build.c_function("chi_bilinear", "chi_bilinear_pack", _PACK_ARGTYPES)
     build.launch(fn, f1d.data_ptr(), df1d.data_ptr(), chiR.data_ptr(), f1d.stride(0), df1d.stride(0), chiR.stride(0),
                  T.data_ptr(), T4.data_ptr(), R, nvx, device=f1d.device)
-    chi_bilinear_pack.launches += 1
     return T, T4
-
-
-chi_bilinear_pack.launches = 0
 
 
 def launch_floor(device):

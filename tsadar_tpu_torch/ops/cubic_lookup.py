@@ -45,11 +45,7 @@ def cubic_lookup_fwd(q, table, meta):
         fn, q.data_ptr(), table.data_ptr(), meta.data_ptr(), val.data_ptr(), dval.data_ptr(), B, Q, n,
         device=q.device,
     )
-    cubic_lookup_fwd.launches += 1
     return val, dval
-
-
-cubic_lookup_fwd.launches = 0
 
 
 def cubic_lookup_bwd(q, g, meta, n):
@@ -61,11 +57,7 @@ def cubic_lookup_bwd(q, g, meta, n):
     dtable = torch.zeros((B, n), dtype=q.dtype, device=q.device)
     fn = build.c_function("cubic_lookup", "cubic_lookup_bwd", _BWD_ARGTYPES)
     build.launch(fn, q.data_ptr(), g.data_ptr(), meta.data_ptr(), dtable.data_ptr(), B, Q, n, device=q.device)
-    cubic_lookup_bwd.launches += 1
     return dtable
-
-
-cubic_lookup_bwd.launches = 0
 
 
 def plain_bwd(q, g, meta, n):

@@ -47,11 +47,7 @@ def lin_lookup_fwd(q, table, x0, dx):
         fn, q.data_ptr(), table.data_ptr(), val.data_ptr(), slope.data_ptr(), B, Q, n, float(x0), float(dx),
         device=q.device,
     )
-    lin_lookup_fwd.launches += 1
     return val, slope
-
-
-lin_lookup_fwd.launches = 0
 
 
 def lin_lookup_bwd(q, g, x0, dx, n):
@@ -64,11 +60,7 @@ def lin_lookup_bwd(q, g, x0, dx, n):
     dtable = torch.zeros((B, n), dtype=q.dtype, device=q.device)
     fn = build.c_function("lin_lookup", "lin_lookup_bwd", _BWD_ARGTYPES)
     build.launch(fn, q.data_ptr(), g.data_ptr(), dtable.data_ptr(), B, Q, n, float(x0), float(dx), device=q.device)
-    lin_lookup_bwd.launches += 1
     return dtable
-
-
-lin_lookup_bwd.launches = 0
 
 
 def plain_bwd(q, g, x0, dx, n):
@@ -130,11 +122,7 @@ def lin_lookup_meta_fwd(q, table, meta):
     fn = build.c_function("lin_lookup", "lin_lookup_meta_fwd", _META_FWD_ARGTYPES)
     build.launch(fn, q.data_ptr(), table.data_ptr(), meta.data_ptr(), val.data_ptr(), slope.data_ptr(), B, Q, npad,
                  device=q.device)
-    lin_lookup_meta_fwd.launches += 1
     return val, slope
-
-
-lin_lookup_meta_fwd.launches = 0
 
 
 def lin_lookup_meta_bwd(q, g, meta, npad):
@@ -146,11 +134,7 @@ def lin_lookup_meta_bwd(q, g, meta, npad):
     dtable = torch.zeros((B, npad), dtype=q.dtype, device=q.device)
     fn = build.c_function("lin_lookup", "lin_lookup_meta_bwd", _META_BWD_ARGTYPES)
     build.launch(fn, q.data_ptr(), g.data_ptr(), meta.data_ptr(), dtable.data_ptr(), B, Q, npad, device=q.device)
-    lin_lookup_meta_bwd.launches += 1
     return dtable
-
-
-lin_lookup_meta_bwd.launches = 0
 
 
 def _meta_grid(meta):

@@ -46,11 +46,7 @@ def pv_tables_fwd(f, coef):
     out = _with_shares(B, 2 * m - 1, f)
     fn = build.c_function("pv_tables", "pv_tables_fwd", _ARGTYPES)
     build.launch(fn, f.data_ptr(), coef.data_ptr(), out.data_ptr(), B, m, device=f.device)
-    pv_tables_fwd.launches += 1
     return out
-
-
-pv_tables_fwd.launches = 0
 
 
 def pv_tables_bwd(g, coef):
@@ -59,11 +55,7 @@ def pv_tables_bwd(g, coef):
     gf = _with_shares(B, m + 2, g)
     fn = build.c_function("pv_tables", "pv_tables_bwd", _ARGTYPES)
     build.launch(fn, g.data_ptr(), coef.data_ptr(), gf.data_ptr(), B, m, device=g.device)
-    pv_tables_bwd.launches += 1
     return gf
-
-
-pv_tables_bwd.launches = 0
 
 
 def _dense(coef):

@@ -74,11 +74,7 @@ def spectrum_tail_fwd(lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weight
     out = torch.empty((dims[0], dims[2]), dtype=lf.dtype, device=lf.device)
     fn = build.c_function("spectrum_tail", "spectrum_tail_fwd", _FWD_ARGTYPES)
     build.launch(fn, *(t.data_ptr() for t in (*operands, out)), *dims, device=lf.device)
-    spectrum_tail_fwd.launches += 1
     return out
-
-
-spectrum_tail_fwd.launches = 0
 
 
 def spectrum_tail_bwd(g, lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weights, sarad, omgs, lfc=None):
@@ -99,11 +95,7 @@ def spectrum_tail_bwd(g, lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, wei
     sums = torch.zeros((B, 2 * G + 2 + 3 * S), dtype=torch.float64, device=lf.device)
     fn = build.c_function("spectrum_tail_bwd", "spectrum_tail_bwd", _BWD_ARGTYPES)
     build.launch(fn, *(t.data_ptr() for t in (*operands, g, *outs, sums)), *dims, device=lf.device)
-    spectrum_tail_bwd.launches += 1
     return outs
-
-
-spectrum_tail_bwd.launches = 0
 
 
 def plain_bwd(g, lf, chiERraw, ne, Te, lam, Va, ud, A, Z, Ti, fract, weights, sarad, omgs, lfc=None):

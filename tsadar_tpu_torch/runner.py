@@ -36,7 +36,7 @@ from .forward import calc_series
 from .inverse import fitter
 from .parallel import dist as par
 from .utils import mlflow_shim as mlflow
-from .utils import plotting
+from .utils import plotting, trace
 from .utils.config import merge_configs
 from .utils.console import log_info
 from .utils.schema import validate_config
@@ -103,7 +103,8 @@ def run(cfg_path, mode, device=None, record=None):
 
     ``record`` (a dict), if given, gets what the mode records
     (``fitter.fit``'s stage seconds and the postprocess's, or the series'
-    ``entry_seconds``).
+    ``entry_seconds``) and ``tracker_bytes``, the bytes the tracker wrote for
+    the mode (``utils.trace``'s counter ``tracker.bytes``).
     """
     _check_start(mode, device)
     with par.process_group(device):
@@ -116,14 +117,18 @@ def run(cfg_path, mode, device=None, record=None):
     return run_id
 
 
+@contextlib.contextmanager
 def _profile(config, device):
-    """A ``torch.profiler`` trace of the mode, with ``other.profile: true``; else nothing."""
+    """A ``torch.profiler`` trace of the mode, with ``other.profile: true``, in which the port's spans
+    (``utils.trace``) are named ranges; else nothing (None)."""
     if not config.get("other", {}).get("profile", False):
-        return contextlib.nullcontext()
+        yield None
+        return
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if resolve_device(device).type == "cuda" else [])
-    return profile(activities=activities)
+    with profile(activities=activities) as prof, trace.named():
+        yield prof
 
 
 def _run_(config, mode="fit", device=None, record=None):
@@ -132,11 +137,14 @@ def _run_(config, mode="fit", device=None, record=None):
     mlflow.log_config(config)
     plotting.figures()
     t0 = time.time()
+    written = trace.counters().get("tracker.bytes", 0)
     with _profile(config, device) as prof:
         if mode.casefold() == "fit":
             fitter.fit(config, device=device, record=record)
         else:
             calc_series.forward_pass(config, device=device, record=record)
+    if record is not None:  # the tracker's run.json rewrites of the mode, in bytes
+        record["tracker_bytes"] = trace.counters().get("tracker.bytes", 0) - written
     if prof is not None:
         with tempfile.TemporaryDirectory(dir=BASE_TEMPDIR) as td:
             prof.export_chrome_trace(os.path.join(td, "trace.json"))

@@ -26,6 +26,7 @@ import time
 import uuid
 
 from ..parallel import dist as par
+from . import trace
 
 try:  # pragma: no cover - taken only where mlflow is installed
     import mlflow as _mlflow
@@ -111,10 +112,12 @@ def start_run(run_name=None, run_id=None, nested=False, log_system_metrics=False
 
 
 def _flush():
+    """Write the open run's ``run.json`` anew: the span ``tracker.write``, its bytes counted in ``tracker.bytes``."""
     if _state["run_dir"] is None:
         return
-    with open(os.path.join(_state["run_dir"], "run.json"), "w") as f:
+    with trace.span("tracker.write"), open(os.path.join(_state["run_dir"], "run.json"), "w") as f:
         json.dump({"metrics": _state["metrics"], "params": _state["params"], "tags": _state["tags"]}, f, indent=1, default=str)
+        trace.count("tracker.bytes", f.tell())
 
 
 def log_metrics(metrics, step=0, **kw):

@@ -59,7 +59,6 @@ raises, as in the JAX package.
 import copy
 import os
 import tempfile
-import time
 
 import numpy as np
 import torch
@@ -68,7 +67,7 @@ from ...core.params.ts_params import ThomsonParams, get_filter_spec, ravel_order
 from ...core.physics.interp import plain_forms
 from .. import artifacts
 from .. import mlflow_shim as mlflow
-from .. import plotting
+from .. import plotting, trace
 from ..config import flatten, unflatten
 from ..console import log_info
 from ..plotting import plotters
@@ -142,23 +141,23 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
     def sigmas_of(weights, batch, n, max_params=None, what="Hessian"):
         """The sigmas of one batch, or None where the Hessian fails (logged, as in the JAX package)."""
         nonlocal hessian_s
-        t0 = time.perf_counter()
-        try:
-            return get_sigmas(batch_flat_hessian(config, loss_fn, weights, batch, max_params=max_params), n)
-        except Exception as e:  # noqa: BLE001  the JAX package's behaviour: no sigmas, the fit stands
-            log_info(f"Error calculating {what} ({e}); skipping uncertainties")
-            if record is not None:
-                record["sigma_error"] = str(e)
-            return None
-        finally:
-            hessian_s += time.perf_counter() - t0
+        with trace.timed("postprocess.hessian") as hessian:
+            try:
+                return get_sigmas(batch_flat_hessian(config, loss_fn, weights, batch, max_params=max_params), n)
+            except Exception as e:  # noqa: BLE001  the JAX package's behaviour: no sigmas, the fit stands
+                log_info(f"Error calculating {what} ({e}); skipping uncertainties")
+                if record is not None:
+                    record["sigma_error"] = str(e)
+                return None
+            finally:
+                hessian_s += hessian.seconds
 
     if angular:
         batch = angular_batch(all_data, slice(config["data"]["lineouts"]["start"], config["data"]["lineouts"]["end"]))
-        t0 = time.perf_counter()
-        loss, sqds, ThryE, _, _ = loss_fn.array_loss(fitted_weights[0], batch)
-        fits["ele"], sqdevs["ele"], losses = to_numpy(ThryE), to_numpy(sqds["ele"]), to_numpy(loss)
-        arrayloss_s += time.perf_counter() - t0
+        with trace.timed("postprocess.arrayloss") as arrayloss:
+            loss, sqds, ThryE, _, _ = loss_fn.array_loss(fitted_weights[0], batch)
+            fits["ele"], sqdevs["ele"], losses = to_numpy(ThryE), to_numpy(sqds["ele"]), to_numpy(loss)
+        arrayloss_s += arrayloss.seconds
         if calc_sigma:
             # a pointwise 2D EDF's nvx^2 weights exceed the budget: skipped, as in the JAX package
             angular_sigmas = sigmas_of(fitted_weights[0], batch, 1, max_params=2048, what="angular Hessian")
@@ -166,10 +165,10 @@ def recalculate_with_chosen_weights(config, sa, sample_indices, all_data, loss_f
     else:
         for i_batch, inds in enumerate(batch_indices):
             batch = _rows(all_data, inds)
-            t0 = time.perf_counter()
-            loss, sqds, ThryE, ThryI, _ = loss_fn.array_loss(fitted_weights[i_batch], batch)
-            losses[inds] = to_numpy(loss)
-            arrayloss_s += time.perf_counter() - t0
+            with trace.timed("postprocess.arrayloss") as arrayloss:
+                loss, sqds, ThryE, ThryI, _ = loss_fn.array_loss(fitted_weights[i_batch], batch)
+                losses[inds] = to_numpy(loss)
+            arrayloss_s += arrayloss.seconds
             _assign(sqdevs["ele"], inds, sqds["ele"])
             _assign(sqdevs["ion"], inds, sqds["ion"])
             _assign(fits["ele"]["total_spec"], inds, ThryE)
@@ -324,30 +323,32 @@ def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_
     and logged as the run's artifacts; for ``angular_full`` no refits, and ``process_angular_data``.  Outside a run the
     tracker would drop them: no file is written."""
     angular = config["other"]["extraoptions"]["spectype"] == "angular_full"
-    t0 = time.perf_counter()
-    init_losses = []
-    if not angular and config["other"]["refit"]:
-        init_losses = refit_bad_fits(config, sa, sample_indices, all_data, loss_fn, fitted_weights, record)
-    refit_seconds = time.perf_counter() - t0
-    mlflow.log_metrics({"refitting time": round(refit_seconds, 2)})
+    with trace.timed("postprocess.refit") as refit:
+        init_losses = []
+        if not angular and config["other"]["refit"]:
+            init_losses = refit_bad_fits(config, sa, sample_indices, all_data, loss_fn, fitted_weights, record)
+    mlflow.log_metrics({"refitting time": round(refit.seconds, 2)})
     if record is not None:
-        record["refit_seconds"] = refit_seconds
+        record["refit_seconds"] = refit.seconds
+
     def process(td):
         if angular:
-            return process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, t0, td,
-                                        record)
-        return process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, init_losses, t0, td,
-                            record)
+            return process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa,
+                                        refit.seconds, td, record)
+        return process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, init_losses,
+                            refit.seconds, td, record)
 
     if mlflow.active_run() is None:
-        t1, final_params = process(None)
+        files, final_params = process(None)
+        writing_seconds = files.seconds
     else:
         with tempfile.TemporaryDirectory() as td:
             for dirname in ("plots", "binary", "csv") if plotting.figures() else ("binary", "csv"):
                 os.makedirs(os.path.join(td, dirname), exist_ok=True)
-            t1, final_params = process(td)
-            mlflow.log_artifacts(td)
-    writing_seconds = time.perf_counter() - t1
+            files, final_params = process(td)
+            with trace.timed("files.log") as logged:
+                mlflow.log_artifacts(td)
+        writing_seconds = files.seconds + logged.seconds
     mlflow.log_metrics({"plotting time": round(writing_seconds, 2)})
     mlflow.set_tag("status", "done plotting")
     if record is not None:
@@ -358,68 +359,68 @@ def postprocess(config, sample_indices, all_data, all_axes, loss_fn, sa, fitted_
 def process_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, losses_init, t1, td, record=None):
     """The recalculation with sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None,
     the files of ``utils.artifacts`` and the figures of ``utils.plotting.plotters`` (where
-    ``utils.plotting.figures()`` says so) in ``td``: ``(the time the files' writing began, final parameters)``.  ``t1`` is the
-    ``perf_counter`` time the postprocess began: ``postprocessing time`` runs from it.  ``record`` gets the
-    losses before and after the refits, the fitted spectra (``fits``, with the breakdown when asked for) and
-    the seconds of the recalculation."""
-    t0 = time.perf_counter()
-    losses, sqdevs, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
-        config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], fitted_weights, record
-    )
+    ``utils.plotting.figures()`` says so) in ``td``: ``(the span of the files' writing, final parameters)``.  ``t1`` is
+    the postprocess's seconds before this call (its refits'): ``postprocessing time`` counts them with the
+    recalculation's.  ``record`` gets the losses before and after the refits, the fitted spectra (``fits``, with the
+    breakdown when asked for) and the seconds of the recalculation."""
+    with trace.timed("postprocess.recalculate") as recalc:
+        losses, sqdevs, _, fits, sigmas, all_params = recalculate_with_chosen_weights(
+            config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], fitted_weights, record
+        )
     if len(losses_init) == 0:
         losses_init = losses
-    mlflow.log_metrics({"postprocessing time": round(time.perf_counter() - t1, 2)})
+    mlflow.log_metrics({"postprocessing time": round(t1 + recalc.seconds, 2)})
     mlflow.set_tag("status", "plotting")
     if record is not None:
         record.update(losses_init=np.asarray(losses_init), losses=losses, fits=fits,
-                      postprocessing_seconds=time.perf_counter() - t0)
-    t_files = time.perf_counter()
-    names = sigma_names(config, fitted_weights[0])
-    final_params = artifacts.get_final_params(config, all_params, all_axes, td)
-    if td is not None:  # the files and figures in the JAX package's order
-        draw = plotting.figures()
-        red_losses = plotters.plot_loss_hist(config, losses_init, losses, 1.0, td) if draw else None
-        artifacts.plot_ts_data(config, fits, all_data, all_axes, td)
-        if draw:
-            plotters.plot_ts_data(config, fits, all_data, all_axes, td)
-            plotters.detailed_lineouts(config, all_data, all_axes, fits, losses, red_losses, sqdevs, td)
-        sigma_ds = artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
-        if draw:
-            plotters.plot_final_params(config, all_params, sigma_ds, td)
-    if config["other"]["calc_sigmas"]:
-        final_params["sigmas"] = dict(zip(names, sigmas.T))
-    return t_files, final_params
+                      postprocessing_seconds=recalc.seconds)
+    with trace.timed("files") as files:
+        names = sigma_names(config, fitted_weights[0])
+        final_params = artifacts.get_final_params(config, all_params, all_axes, td)
+        if td is not None:  # the files and figures in the JAX package's order
+            draw = plotting.figures()
+            red_losses = plotters.plot_loss_hist(config, losses_init, losses, 1.0, td) if draw else None
+            artifacts.plot_ts_data(config, fits, all_data, all_axes, td)
+            if draw:
+                plotters.plot_ts_data(config, fits, all_data, all_axes, td)
+                plotters.detailed_lineouts(config, all_data, all_axes, fits, losses, red_losses, sqdevs, td)
+            sigma_ds = artifacts.save_sigmas_params(config, names, sigmas, all_axes, td)
+            if draw:
+                plotters.plot_final_params(config, all_params, sigma_ds, td)
+        if config["other"]["calc_sigmas"]:
+            final_params["sigmas"] = dict(zip(names, sigmas.T))
+    return files, final_params
 
 
 def process_angular_data(config, sample_indices, all_data, all_axes, loss_fn, fitted_weights, sa, t1, td, record=None):
     """``process_data`` of an ARTS fit (one unbatched set of parameters, ``fitted_weights``): the recalculation with
     sigmas (``other.calc_sigmas``), the final parameters and, unless ``td`` is None, the angular files of
-    ``utils.artifacts`` (the image and its fit, the sigmas as ``sigmas_fe`` and the EDF) and their figures.  Returns ``(the time the
-    files' writing began, final parameters)``; ``record`` as in ``process_data``."""
-    t0 = time.perf_counter()
-    losses, sqdevs, num_params, fits, sigmas, all_params = recalculate_with_chosen_weights(
-        config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], [fitted_weights], record
-    )
-    mlflow.log_metrics({"postprocessing time": round(time.perf_counter() - t1, 2)})
+    ``utils.artifacts`` (the image and its fit, the sigmas as ``sigmas_fe`` and the EDF) and their figures.  Returns ``(the span of
+    the files' writing, final parameters)``; ``t1`` and ``record`` as in ``process_data``."""
+    with trace.timed("postprocess.recalculate") as recalc:
+        losses, sqdevs, num_params, fits, sigmas, all_params = recalculate_with_chosen_weights(
+            config, sa, sample_indices, all_data, loss_fn, config["other"]["calc_sigmas"], [fitted_weights], record
+        )
+    mlflow.log_metrics({"postprocessing time": round(t1 + recalc.seconds, 2)})
     mlflow.set_tag("status", "plotting")
     if record is not None:
-        record.update(losses=losses, fits=fits, sigmas=sigmas, postprocessing_seconds=time.perf_counter() - t0)
-    t_files = time.perf_counter()
-    final_params = artifacts.get_final_params(config, all_params, all_axes, td)
-    if td is not None:  # the files and figures in the JAX package's order
-        draw = plotting.figures()
-        savedata = artifacts.plot_data_angular(config, fits, all_data, all_axes, td)
-        if draw:
-            plotters.plot_data_angular(config, fits, all_data, all_axes, td)
-            plotters.plot_ang_lineouts(num_params, sqdevs, losses, all_params, all_axes, savedata, td)
+        record.update(losses=losses, fits=fits, sigmas=sigmas, postprocessing_seconds=recalc.seconds)
+    with trace.timed("files") as files:
+        final_params = artifacts.get_final_params(config, all_params, all_axes, td)
+        if td is not None:  # the files and figures in the JAX package's order
+            draw = plotting.figures()
+            savedata = artifacts.plot_data_angular(config, fits, all_data, all_axes, td)
+            if draw:
+                plotters.plot_data_angular(config, fits, all_data, all_axes, td)
+                plotters.plot_ang_lineouts(num_params, sqdevs, losses, all_params, all_axes, savedata, td)
+            if config["other"]["calc_sigmas"]:
+                artifacts.save_sigmas_fe(final_params, None, sigmas, td)
+            artifacts.save_dist(final_params, td)
+            if draw:
+                plotters.plot_dist(config, "electron", final_params, None, td)
         if config["other"]["calc_sigmas"]:
-            artifacts.save_sigmas_fe(final_params, None, sigmas, td)
-        artifacts.save_dist(final_params, td)
-        if draw:
-            plotters.plot_dist(config, "electron", final_params, None, td)
-    if config["other"]["calc_sigmas"]:
-        final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights), sigmas.T))
-    return t_files, final_params
+            final_params["sigmas"] = dict(zip(sigma_names(config, fitted_weights), sigmas.T))
+    return files, final_params
 
 
 def sigma_names(config, weights):
