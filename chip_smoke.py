@@ -24,10 +24,13 @@ From the repository root, on a machine with one CUDA GPU and nvcc.  It
    the real chi_R table and queries, forward and backward, against K1/K2),
    loss and gradient of 4 real lineouts against the CPU float64 plain path,
    and FIT_STEPS adam steps at lr 2e-2 (K1-K6 and both K9 modes once per
-   step) under ``bench_whole_shot.py``'s quality gate: Te, ne and m at the
-   lineouts of pixels 500-510 within 10 %, 5 % and 15 % of the validated
-   0.641, 0.228 and 3.20, final and median lineout loss under 1e-3, the fit
-   under 60 s; ms per step and a profile of the step;
+   step, counted on the device's trace: the steps after the first two are
+   replays of its CUDA graph, which call no launcher) under
+   ``bench_whole_shot.py``'s quality gate: Te, ne and m at the lineouts of pixels 500-510 within 10 %, 5 % and
+   15 % of the validated 0.641, 0.228 and 3.20, final and median lineout loss
+   under 1e-3, the fit under 60 s; ms per step and a profile of the step;
+   GRAPH_STEPS graphed steps against the same steps run eagerly
+   (``real_data_fit_graph``);
    Then the main deck as written (``tests/configs/time_test_{defaults,inputs}.yaml``:
    pixels 500 and 505, batch size 2, scipy L-BFGS-B, 1000 iterations at most)
    through ``fitter.fit`` on the card: loss and gradient at batch sizes 2 and 1
@@ -154,6 +157,7 @@ card's name and power limit as ``nvidia-smi`` gives them, and last
 exits 2.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -1730,19 +1734,19 @@ def real_data_grad_check(cfg, sa, batch, phase, f32_rule=False, lost_to_float32=
 
 
 def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
-    """``_1d_adam_loop_`` on the 128 real lineouts: FIT_STEPS adam steps at FIT_LR in chunks of 8, K1-K6
-    and both K9 modes once per step, then ``bench_whole_shot.py``'s quality gate.  Returns the launches and every
-    step's loss."""
+    """``_1d_adam_loop_`` on the 128 real lineouts: FIT_STEPS adam steps at FIT_LR in chunks of 8, then
+    ``bench_whole_shot.py``'s quality gate; the same fit again under the device's trace, K1-K6 and both K9 modes run
+    once a step.  Returns the launches (``DeviceRuns``) and every step's loss."""
     import torch
 
     from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
 
     fit_cfg = fit_config(cfg, N_LINEOUTS, FIT_STEPS)
     record = {}
-    read_and_zero(wrappers)
     best_loss, best = _1d_adam_loop_(fit_cfg, loss_fn, None, batch, record=record)
     torch.cuda.synchronize()
-    launches = read_and_zero(wrappers)
+    with on_device(wrappers) as launches:
+        _1d_adam_loop_(fit_cfg, loss_fn, None, batch)
     losses = record["losses"]
     fit_seconds = sum(record["chunk_seconds"])
     with torch.no_grad():
@@ -1758,6 +1762,7 @@ def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
     ok = launches == want and bool(np.isfinite(losses).all()) and all(gates.values())
     ms_per_step = 1e3 * fit_seconds / FIT_STEPS
     emit({"phase": "real_data_fit", "lineouts": N_LINEOUTS, "steps": FIT_STEPS, "lr": FIT_LR, "launches": launches,
+          "launcher_calls": launches.calls, "graph_replays": launches.replays,
           "first_loss": losses[0], "final_loss": losses[-1], "best_loss": best_loss,
           "median_lineout_loss": float(np.median(row_loss)), "worst_lineout_loss": float(np.max(row_loss)),
           "at_pixels_500_510": at_window, "truth_and_tol": REAL_TRUTH, "gates": gates, "quality_ok": all(gates.values()),
@@ -1769,6 +1774,74 @@ def real_data_fit(cfg, loss_fn, batch, wrappers, smi):
     emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, batch), few, ms_per_step,
                      "real_data_fit_profile", "step"))
     return launches, losses
+
+
+# the graph against the eager steps on the real-data fit: GRAPH_STEPS adam steps with per-lineout best-so-far
+GRAPH_STEPS = 20
+GRAPH_LOSS_RTOL = 1e-5  # of each eager loss (the graph's Adam keeps its step count on the card, in float32)
+GRAPH_LEAF_TOL = 1e-5  # of each fitted leaf's largest |entry|: a lineout's best-so-far taken at another step misses by ~lr
+
+
+@contextlib.contextmanager
+def eager_loop(capturable=False):
+    """Inside, the adam loop runs every step eagerly on the card (its CUDA graph off), with Adam built
+    ``capturable`` (as the graph's is) or as the eager loop builds it."""
+    from tsadar_tpu_torch.inverse import loops
+
+    graphed, optimizer = loops._graphed, loops.optimizer
+    loops._graphed = lambda device, ranks, epochs: False
+    loops.optimizer = lambda method, leaves, lr, **_: optimizer(method, leaves, lr, capturable=capturable)
+    try:
+        yield
+    finally:
+        loops._graphed, loops.optimizer = graphed, optimizer
+
+
+def graph_against_eager(cfg, loss_fn, batch, steps=GRAPH_STEPS):
+    """``steps`` adam steps of ``cfg``'s fit with per-lineout best-so-far, graphed, eager, and eager with Adam
+    capturable: {the graphed losses' largest relative miss of the eager ones, the graphed leaves' largest miss of the
+    eager capturable ones as a share of each leaf's largest |entry| (the same best-so-far rows: the same arithmetic,
+    apart from the kernels' float atomics), the graphed fit's captures and replays, the losses}."""
+    from tsadar_tpu_torch.core.params import get_filter_spec
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+    from tsadar_tpu_torch.utils import trace
+
+    fit_cfg = copy.deepcopy(cfg)
+    fit_cfg["optimizer"].update(num_epochs=steps, track_best="per_lineout")
+
+    def fit():
+        record = {}
+        trace.clear()
+        _, weights = _1d_adam_loop_(fit_cfg, loss_fn, None, batch, record=record)
+        leaves = [p.detach().double().cpu() for p in get_filter_spec(fit_cfg["parameters"], weights).values()]
+        return np.asarray(record["losses"]), leaves, trace.counters()
+
+    graph = fit()
+    with eager_loop():
+        eager = fit()
+    with eager_loop(capturable=True):
+        eager_capturable = fit()
+    trace.clear()
+    return {"loss_miss": float(np.max(np.abs(graph[0] / eager[0] - 1.0))),
+            "leaf_miss": max(float((g - e).abs().max() / e.abs().max()) for g, e in zip(graph[1], eager_capturable[1])),
+            "captures": graph[2].get("fit.graph.captures", 0), "replays": graph[2].get("fit.graph.replays", 0),
+            "eager_replays": eager[2].get("fit.graph.replays", 0) + eager_capturable[2].get("fit.graph.replays", 0),
+            "graph_losses": graph[0].tolist(), "eager_losses": eager[0].tolist()}
+
+
+def real_data_fit_graph(cfg, loss_fn, batch, smi):
+    """The real-data fit's step as a CUDA graph against the same steps run eagerly (``graph_against_eager``): the
+    losses to GRAPH_LOSS_RTOL, the best-so-far leaves to GRAPH_LEAF_TOL, one capture and GRAPH_STEPS - 1 replays."""
+    got = graph_against_eager(fit_config(cfg, N_LINEOUTS, GRAPH_STEPS), loss_fn, batch)
+    checks = {"losses": got["loss_miss"] <= GRAPH_LOSS_RTOL, "best_so_far": got["leaf_miss"] <= GRAPH_LEAF_TOL,
+              "captured_once": got["captures"] == 1, "replays": got["replays"] == GRAPH_STEPS - 1,
+              "eager_not_replayed": got["eager_replays"] == 0}
+    ok = all(checks.values())
+    emit({"phase": "real_data_fit_graph", "lineouts": N_LINEOUTS, "steps": GRAPH_STEPS, **got,
+          "loss_rtol": GRAPH_LOSS_RTOL, "leaf_tol": GRAPH_LEAF_TOL, "checks": checks, "gpu": smi, "ok": ok})
+    if not ok:
+        raise RuntimeError(f"real_data_fit_graph: checks {checks}, loss miss {got['loss_miss']:.3e}, "
+                           f"leaf miss {got['leaf_miss']:.3e}")
 
 
 def deck_pair(*parts):
@@ -2161,12 +2234,21 @@ def imaging_112059_fit(wrappers, smi):
     """``fitter.fit`` on the main deck with test_imaging_data.py's changes (shot 112059, EPW_CCD; pixels
     500:510:5, adam for 30 epochs, batch 2, ``detailed_breakdown`` on): its loss and pins, and the record's
     breakdown (``spec_comps``, ``IRF``, ``detailed_axis``) finite for every batch and both features."""
+    import torch
+
+    from tsadar_tpu_torch.inverse import fitter
+
     cfg = load_main_deck()
     cfg["data"]["shotnum"] = 112059
     cfg["data"]["lineouts"].update({"type": "pixel", "start": 500, "end": 510, "skip": 5})
     cfg["optimizer"].update({"method": "adam", "num_epochs": 30, "batch_size": 2})
     cfg.setdefault("plotting", {})["detailed_breakdown"] = True
-    final, loss, record, launches, seconds = deck_fit(cfg, wrappers)
+    record = {}
+    with on_device(wrappers) as launches:
+        t0 = time.perf_counter()
+        final, loss = fitter.fit(cfg, record=record)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
     steps = cfg["optimizer"]["num_epochs"]
     # per step K1-K6 and both K9 modes; the postprocess's array loss one forward; the breakdown one unreduced
     # forward (K1, K3, K9: its tail is the plain one)
@@ -2185,7 +2267,8 @@ def imaging_112059_fit(wrappers, smi):
     emit({"phase": "imaging_112059_fit", "loss": loss, "fitted": {k: [float(x) for x in final[k]] for k in IMAGING_PINS},
           "pin_misses": misses, "gates": gates, "breakdown_finite": breakdown,
           "spec_comps_shapes": {f: {str(b): list(np.shape(v)) for b, v in fits[f]["spec_comps"].items()} for f in ("ele", "ion")},
-          "launches": launches, "launches_want": want, "seconds": seconds,
+          "launches": launches, "launcher_calls": launches.calls, "graph_replays": launches.replays,
+          "launches_want": want, "seconds": seconds,
           "stage_seconds": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")}, "gpu": smi, "ok": ok})
     if not ok:
         raise RuntimeError(f"imaging_112059_fit: gates {gates}, misses {misses}, launches {launches} (want {want})")
@@ -2599,12 +2682,11 @@ def cli_whole_shot_fit(wrappers, smi):
     record = {}
     with tracker_root() as tmp:
         deck = write_decks(tmp / "whole_shot", *whole_shot_decks())
-        read_and_zero(wrappers)
-        t0 = time.perf_counter()
-        run_id = runner.run(str(deck), "fit", record=record)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_and_zero(wrappers)
+        with on_device(wrappers) as launches:
+            t0 = time.perf_counter()
+            run_id = runner.run(str(deck), "fit", record=record)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         run_dir, meta = run_of(tmp / "runs", run_id)
         figures, figures_ok = figures_check(run_dir, meta)
         table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
@@ -2631,7 +2713,8 @@ def cli_whole_shot_fit(wrappers, smi):
                                                           "recalc_hessian_seconds", "postprocessing_seconds", "artifact_seconds",
                                                           "postprocess_seconds")},
           "hessian_cpu_f64_seconds": record["recalc_hessian_seconds"], "seconds": seconds,
-          "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+          "launches": launches, "launcher_calls": launches.calls, "graph_replays": launches.replays,
+          "launches_want": want, "gpu": smi, "ok": ok})
     if not ok:
         raise RuntimeError(f"cli_whole_shot_fit: checks {checks}, gates {gates}, at 500-508 {at}, launches {launches} (want {want})")
     return launches
@@ -2731,12 +2814,11 @@ def detector_112059_fit(wrappers, smi):
     record = {}
     with tracker_root() as tmp:
         deck = write_decks(tmp / "detector_112059", *decks)
-        read_and_zero(wrappers)
-        t0 = time.perf_counter()
-        run_id = runner.run(str(deck), "fit", record=record)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = read_and_zero(wrappers)
+        with on_device(wrappers) as launches:
+            t0 = time.perf_counter()
+            run_id = runner.run(str(deck), "fit", record=record)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
         run_dir, meta = run_of(tmp / "runs", run_id)
         figures, figures_ok = figures_check(run_dir, meta)
         table = csv_columns(run_dir / "artifacts" / "csv" / "learned_parameters.csv")
@@ -2759,7 +2841,8 @@ def detector_112059_fit(wrappers, smi):
           "fitted_median": {k: float(np.median(table[k])) for k in bounds}, "outside_bounds_or_not_finite": outside,
           "checks": checks, "ms_per_step": ms_per_step, "steps": steps, "detector_host_seconds": detector_seconds[0],
           "stage_seconds": {k: record[k] for k in ("setup_seconds", "fit_seconds", "postprocess_seconds")},
-          "seconds": seconds, "launches": launches, "launches_want": want, "gpu": smi, "ok": ok})
+          "seconds": seconds, "launches": launches, "launcher_calls": launches.calls, "graph_replays": launches.replays,
+          "launches_want": want, "gpu": smi, "ok": ok})
     if not ok:
         raise RuntimeError(f"detector_112059_fit: checks {checks}, outside bounds {outside}, launches {launches} (want {want})")
     return launches
@@ -3632,8 +3715,9 @@ def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
     tracker, and the losses (a world of one is an identity) against ``real_data_fit``'s loop run here on the data
     that the child prepared (scipy's streak-background fit can end in either of two mirror solutions, so two
     processes can prepare different data): the first DIST_EARLY_STEPS to DIST_EARLY_RTOL, every one to
-    DIST_ONE_RANK_LOSS_RTOL.  Where the child's data are ``real_data_prepare``'s bits, the reference run and
-    ``real_data_fit`` are two runs of one loop on one input: their largest difference is the card's own spread.
+    DIST_ONE_RANK_LOSS_RTOL; the reference runs its steps eagerly, as the sharded child does.  Where the child's
+    data are ``real_data_prepare``'s bits, the reference run and ``real_data_fit`` (graphed) are two runs of one fit
+    on one input: their largest difference is the card's own spread.
     Returns the child's launches."""
     import os
     import pickle
@@ -3681,7 +3765,8 @@ def dist_one_rank_nccl(wrappers, smi, real_cfg, real_sa, real_all, real_losses):
         same_data = same_bits(child_all, real_all) and same_bits(child_sa, real_sa)
         batch, record = real_batch(child_all), {}
         fit_cfg = fit_config(real_cfg, N_LINEOUTS, FIT_STEPS)
-        _1d_adam_loop_(fit_cfg, LossFunction(fit_cfg, child_sa, batch), None, batch, record=record)
+        with eager_loop():  # the child's sharded loop runs eagerly: the reference takes the same arithmetic
+            _1d_adam_loop_(fit_cfg, LossFunction(fit_cfg, child_sa, batch), None, batch, record=record)
         read_and_zero(wrappers)
         ref_losses = record["losses"]
         if same_data:
@@ -3973,13 +4058,83 @@ PADDED_KERNELS = ("lin_lookup_meta_fwd", "lin_lookup_meta_bwd")
 REAL_FIT_KERNELS = tuple(k for k in KERNELS if k not in ARTS_KERNELS + PADDED_KERNELS)  # K1-K6 and both K9 modes
 
 
+# the device function that each launcher starts, as the profiler names it (csrc/*.cu); a launcher's second kernel
+# (K9's share sum, K6's finish) is left out
+DEVICE_KERNELS = {
+    "lin_lookup_fwd": "lin_lookup_kernel", "lin_lookup_bwd": "lin_lookup_bwd_kernel",
+    "cubic_lookup_fwd": "cubic_lookup_kernel", "cubic_lookup_bwd": "cubic_lookup_bwd_kernel",
+    "spectrum_tail_fwd": "spectrum_tail_kernel", "spectrum_tail_bwd": "spectrum_tail_bwd_kernel",
+    "chi_bilinear_fwd": "chi_bilinear_fwd_kernel", "chi_bilinear_pack": "chi_bilinear_pack_kernel",
+    "chi_bilinear_bwd": "chi_bilinear_bwd_kernel", "pv_tables_fwd": "pv_tables_fwd_kernel",
+    "pv_tables_bwd": "pv_tables_bwd_kernel", "lin_lookup_meta_fwd": "lin_lookup_meta_kernel",
+    "lin_lookup_meta_bwd": "lin_lookup_meta_bwd_kernel",
+}
+
+
+TRACE_MARGIN_S = 0.25  # idle seconds at each end of an ``on_device`` trace
+
+
+class Launches(dict):
+    """{name: launcher calls} of ``read_and_zero``, with ``replays``: the replays of a graphed adam step over the
+    same calls (counter ``fit.graph.replays``).  A replay runs the captured step's kernels and calls no launcher."""
+
+    replays = 0
+
+
+class DeviceRuns(dict):
+    """{name: runs of its kernel on the device} of ``on_device``, with the same span's launcher ``calls`` and
+    ``replays`` (a ``Launches``): under a graph only the device's trace counts what ran."""
+
+    calls, replays = {}, 0
+
+
 def read_and_zero(wrappers):
-    """{name: launches} of each kernel named in ``wrappers`` since the last call, and the counters zeroed."""
+    """{name: launches} of each kernel named in ``wrappers`` since the last call (a ``Launches``), and the counters
+    zeroed."""
     from tsadar_tpu_torch.utils import trace
 
-    launches = trace.counters()
+    counts = trace.counters()
     trace.clear()
-    return {k: launches.get(f"ops.launches[{k}]", 0) for k in wrappers}
+    launches = Launches({k: counts.get(f"ops.launches[{k}]", 0) for k in wrappers})
+    launches.replays = counts.get("fit.graph.replays", 0)
+    return launches
+
+
+def device_runs(events, names):
+    """{name: runs on the device of ``DEVICE_KERNELS[name]``} in ``events`` (a profiler's ``key_averages()``)."""
+    from torch.autograd import DeviceType
+
+    runs = dict.fromkeys(names, 0)
+    by_kernel = {DEVICE_KERNELS[k]: k for k in names}
+    for e in events:
+        # the function's name without "void", its namespaces, template arguments and parameters
+        bare = re.split(r"[<(]", re.sub(r"^void\s+|\(anonymous namespace\)::", "", e.key), maxsplit=1)[0].split("::")[-1]
+        if e.device_type == DeviceType.CUDA and bare.strip() in by_kernel:
+            runs[by_kernel[bare.strip()]] += e.count
+    return runs
+
+
+@contextlib.contextmanager
+def on_device(wrappers):
+    """Counts the kernels of ``wrappers`` that run on the device inside, a graph's replays included: the counters
+    zeroed and torch.profiler's device trace on; after, the ``DeviceRuns`` yielded holds each kernel's runs, the
+    launcher calls and the replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    read_and_zero(wrappers)
+    runs = DeviceRuns()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the trace keeps only what ran between its start and its stop on the host's clock: a margin on both sides,
+        # so that the device's own clock, which drifts from the host's, puts no kernel outside the window
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+        yield runs
+        torch.cuda.synchronize()
+        time.sleep(TRACE_MARGIN_S)
+    runs.update(device_runs(prof.key_averages(), wrappers))
+    runs.calls = read_and_zero(wrappers)
+    runs.replays = runs.calls.replays
 
 
 def main():
@@ -4055,6 +4210,7 @@ def main():
     real_data_grad_check(*lineouts_of(real_cfg, real_sa, real_all, REAL_CHECK_PIXELS), "real_data_grad_check",
                          pixels=list(REAL_CHECK_PIXELS))
     real_fit_launches, real_fit_losses = real_data_fit(real_cfg, real_loss_fn, real_fit_batch, wrappers, smi)
+    real_data_fit_graph(real_cfg, real_loss_fn, real_fit_batch, smi)
 
     # 4b. this slice's path: the main deck as written through fitter.fit (scipy L-BFGS-B on the card), loss
     # and gradient at its batch sizes, then its postprocess with a refit and the sigma-Hessian
@@ -4137,10 +4293,12 @@ def main():
     grad_check(cfg, sas, draws, diag_cpu)
 
     # 7. the second slice's path: the adam fit of the whole lineout batch, forward and backward through the kernels
-    read_and_zero(wrappers)
+    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
+
     record, best_loss, errors, (loss_fn, fit_batch) = run_fit(cfg, sas, draws, N_LINEOUTS, FIT_STEPS, diag)
     torch.cuda.synchronize()
-    fit_launches = read_and_zero(wrappers)
+    with on_device(wrappers) as fit_launches:  # the same fit again under the device's trace
+        _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, FIT_STEPS), loss_fn, None, fit_batch)
     losses = record["losses"]
     # the whole fit on the host clock (every chunk ends on a synchronizing read), and the chunks on their own
     ms_per_step = 1e3 * sum(record["chunk_seconds"]) / FIT_STEPS
@@ -4153,6 +4311,7 @@ def main():
         and all(medians[k] <= tol for k, tol in FIT_TOL.items())
     )
     emit({"phase": "fit", "lineouts": N_LINEOUTS, "steps": FIT_STEPS, "lr": FIT_LR, "launches": fit_launches,
+          "launcher_calls": fit_launches.calls, "graph_replays": fit_launches.replays,
           "first_loss": losses[0], "last_loss": losses[-1], "best_loss": best_loss, "losses_finite": bool(np.isfinite(losses).all()),
           "median_rel_err": {k: medians[k] for k in FIT_TOL}, "max_rel_err": {k: float(errors[k].max()) for k in FIT_TOL},
           "tol": FIT_TOL, "median_lam_abs_err_nm": medians["lam_nm"], "max_lam_abs_err_nm": float(errors["lam_nm"].max()),
@@ -4162,8 +4321,6 @@ def main():
     if not fit_ok:
         raise RuntimeError(f"fit: launches {fit_launches}, best loss {best_loss:.3e} of first {losses[0]:.3e}, "
                            f"median errors {medians} against {FIT_TOL}")
-    from tsadar_tpu_torch.inverse.loops import _1d_adam_loop_
-
     few = 4  # steps under the profiler, from the deck's start values again
     emit(profile_run(lambda: _1d_adam_loop_(fit_config(cfg, N_LINEOUTS, few), loss_fn, None, fit_batch), few, ms_per_step,
                      "fit_profile", "step"))
@@ -4201,25 +4358,32 @@ def main():
             path_launches[f"dist_arts_2v_points_rank{r}"] = counts
 
     def launches_of(k):
-        """(on its main path, in that path's fit, fit steps): the ARTS path (K7, K8), K10's drive on the
+        """(launches on its main path, that path's fit's, fit steps): the ARTS path (K7, K8), K10's drive on the
         real-data operands, the real-data path (K9), or the first slices' synthetic 1V path (K1-K6)."""
         if k in ARTS_KERNELS:
-            return (arts_fwd_launches if k in ARTS_FWD_KERNELS else arts_fit_launches)[k], arts_fit_launches[k], arts_steps
+            return arts_fwd_launches if k in ARTS_FWD_KERNELS else arts_fit_launches, arts_fit_launches, arts_steps
         if k in PADDED_KERNELS:
-            return padded_launches[k], 0, 0
+            return padded_launches, {}, 0
         if k.startswith("pv_tables"):
-            return (real_fwd_launches if k in FORWARD_KERNELS else real_fit_launches)[k], real_fit_launches[k], FIT_STEPS
-        return (fwd_launches if k in FORWARD_KERNELS else fit_launches)[k], fit_launches[k], FIT_STEPS
+            return real_fwd_launches if k in FORWARD_KERNELS else real_fit_launches, real_fit_launches, FIT_STEPS
+        return fwd_launches if k in FORWARD_KERNELS else fit_launches, fit_launches, FIT_STEPS
 
-    emit({"kernels": [
-        {"name": k, "tpu_kernel": KERNELS[k][2], "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
-         "launches": launches_of(k)[0], "fit_launches": launches_of(k)[1],
-         "launches_per_fit_step": launches_of(k)[1] / launches_of(k)[2] if launches_of(k)[2] else 0.0,
-         "real_data_fit_launches": real_fit_launches[k], "main_deck_fit_launches": main_fit_launches[k],
-         **{f"{path}_launches": counts[k] for path, counts in path_launches.items()},
-         **rows[k], **({"ptxas": ptxas[k]} if k in ptxas else {})}
-        for k in wrappers
-    ]})
+    def counted(path, counts, k):
+        """``k``'s launches on ``path``; for a path counted on the device (``DeviceRuns``), its launcher calls and
+        graph replays beside them."""
+        calls = {f"{path}_launcher_calls": counts.calls[k], f"{path}_graph_replays": counts.replays} \
+            if isinstance(counts, DeviceRuns) else {}
+        return {f"{path}_launches": counts.get(k, 0), **calls}
+
+    def kernel_row(k):
+        on_path, fit, steps = launches_of(k)
+        return {"name": k, "tpu_kernel": KERNELS[k][2], "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
+                "launches": on_path[k], **counted("fit", fit, k), "launches_per_fit_step": fit.get(k, 0) / steps if steps else 0.0,
+                **counted("real_data_fit", real_fit_launches, k), **counted("main_deck_fit", main_fit_launches, k),
+                **{f: v for path, counts in path_launches.items() for f, v in counted(path, counts, k).items()},
+                **rows[k], **({"ptxas": ptxas[k]} if k in ptxas else {})}
+
+    emit({"kernels": [kernel_row(k) for k in wrappers]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})
     return 0

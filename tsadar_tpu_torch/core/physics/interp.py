@@ -43,6 +43,7 @@ between, so that autograd can differentiate them twice (the sigma-Hessian of
 """
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -69,6 +70,12 @@ def plain_forms_on(*tensors):
     return _PLAIN_FORMS
 
 
+@functools.lru_cache(maxsize=64)
+def _number(v, dtype, device):
+    """The number ``v`` as a 0-d tensor, uploaded once per (value, dtype, device): no call copies it from the host."""
+    return torch.as_tensor(v, dtype=dtype, device=device)
+
+
 def lin_cell(q, x0, dx, n):
     """(raw position, i0, w) of the linear lookup on the grid x0 + dx * arange(n).
 
@@ -77,7 +84,8 @@ def lin_cell(q, x0, dx, n):
     # x0 and dx as tensors: PyTorch divides by a Python-scalar divisor through
     # its reciprocal, which moves pos by an ulp and can flip i0 at a cell edge
     # against the kernel's true division
-    x0, dx = (torch.as_tensor(v, dtype=q.dtype, device=q.device) for v in (x0, dx))
+    x0, dx = (torch.as_tensor(v, dtype=q.dtype, device=q.device) if torch.is_tensor(v) else _number(v, q.dtype, q.device)
+              for v in (x0, dx))
     raw = (q - x0) / dx
     pos = torch.clamp(raw, 0.0, n - 1.0)
     i0 = torch.clamp(torch.floor(pos), max=n - 2.0)

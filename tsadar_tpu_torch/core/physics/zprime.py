@@ -16,6 +16,7 @@ package's ``_dawsn_jvp``), not through the series.  ``zprimeMaxw`` stacks
 the two parts, as the reference's table lookup of that name returned them.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -29,13 +30,16 @@ _J64 = np.arange(-14.0, 15.0)
 _GAUSS64 = np.exp(-4.0 * _H64**2 * _J64**2)
 
 
+@functools.lru_cache(maxsize=8)
+def _series(dtype, device):
+    """(h, j, gauss) of the Rybicki series for ``dtype``, the two grids uploaded once per (dtype, device): no call
+    copies them from the host."""
+    h, jgrid, gauss = (_H64, _J64, _GAUSS64) if dtype == torch.float64 else (_H32, _J32, _GAUSS32)
+    return h, torch.as_tensor(jgrid, dtype=dtype, device=device), torch.as_tensor(gauss, dtype=dtype, device=device)
+
+
 def _dawsn_rybicki(x):
-    if x.dtype == torch.float64:
-        h, jgrid, gauss = _H64, _J64, _GAUSS64
-    else:
-        h, jgrid, gauss = _H32, _J32, _GAUSS32
-    j = torch.as_tensor(jgrid, dtype=x.dtype, device=x.device)
-    g = torch.as_tensor(gauss, dtype=x.dtype, device=x.device)
+    h, j, g = _series(x.dtype, x.device)
     n0 = 2.0 * torch.floor(x / (2.0 * h)) + 1.0  # odd, u = x - n0 h in [-h, h)
     u = x - n0 * h
     b_pow = torch.exp(4.0 * h * u[..., None] * j)

@@ -37,6 +37,7 @@ and ``fit_first_dispatch_time``.
 """
 
 import copy
+import functools
 import os
 import pickle
 import tempfile
@@ -104,6 +105,61 @@ def _unshard(local, ts_params, ranks, mask):
     return local if ranks is None else par.unshard_params(local, ts_params, ranks, mask)
 
 
+EAGER_STEPS = 1  # eager steps before the capture: Adam's state, the allocator's blocks, cuBLAS's and cuFFT's set-up
+# the fewest epochs at which a graphed fit beat the eager one at 1, 128 and 512 lineouts on an H100 (PERF.md §6):
+# at 512 the capture and its memory pool cost about 0.1 s a fit, which 8 epochs did not win back
+GRAPH_MIN_EPOCHS = 12
+
+
+def _graphed(device, ranks, num_epochs):
+    """Whether the adam loop replays its step as a CUDA graph: on the card, unsharded (the sharded step's
+    collectives stay eager), and with enough epochs to pay for the capture."""
+    return device.type == "cuda" and ranks is None and num_epochs >= GRAPH_MIN_EPOCHS
+
+
+@functools.cache
+def _side_stream(device):
+    """The stream the eager steps run and the capture records on, one per device for the process: the
+    allocator keeps a stream's freed blocks for that stream, so one stream lets each fit reuse the last one's."""
+    return torch.cuda.Stream(device)
+
+
+class _StepGraph:
+    """One fit's step on the card: ``EAGER_STEPS`` calls of ``step`` on a side stream, then the
+    step captured once as a CUDA graph and replayed once a call, the captured step included (capture runs
+    nothing).  Each call returns the step's pre-update loss as a tensor of its own.  ``release()`` drops the
+    graph and hands its memory pool back to the allocator."""
+
+    def __init__(self, step, device):
+        self.step, self.device, self.eager = step, device, EAGER_STEPS
+        self.graph = self.value = None
+
+    def __call__(self):
+        if self.eager:
+            self.eager -= 1
+            side, main = _side_stream(self.device), torch.cuda.current_stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                value = self.step()
+            main.wait_stream(side)
+            return value
+        if self.graph is None:
+            with trace.span("fit.capture"):
+                self.graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self.graph, stream=_side_stream(self.device)):
+                    self.value = self.step()
+            trace.count("fit.graph.captures")
+        with trace.span("fit.replay"):
+            self.graph.replay()
+        trace.count("fit.graph.replays")
+        return self.value.clone()
+
+    def release(self):
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.value = None
+
+
 def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, record=None, ranks=None):
     """Adam epochs over one lineout batch: ``(best loss, best parameters)``.
 
@@ -113,13 +169,24 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
     assembled parameters' actual joint loss; ``num_epochs == 0`` returns
     ``(inf, initial parameters)``.
 
-    Best-so-far lives on the device (``torch.where``); the host reads nothing
-    until the fit is over.  ``optimizer.chunk_size`` (default 8) matters only
-    to a run that records: with ``record`` (a dict) given, the host reads the
-    losses once per chunk of that many steps:
-    ``record["losses"]`` gets every step's pre-update loss and
-    ``record["chunk_seconds"]`` / ``record["chunk_steps"]`` the host time of
-    each chunk, synchronized at its end.
+    Best-so-far lives on the device (``torch.where`` into tensors updated in
+    place); the host reads nothing until the fit is over.
+    ``optimizer.chunk_size`` (default 8) matters only to a run that records:
+    with ``record`` (a dict) given, the host reads the losses once per chunk
+    of that many steps: ``record["losses"]`` gets every step's pre-update
+    loss and ``record["chunk_seconds"]`` / ``record["chunk_steps"]`` the host
+    time of each chunk, synchronized at its end.
+
+    On the card, unsharded, and with at least ``GRAPH_MIN_EPOCHS`` epochs
+    (``_graphed``), one step is a CUDA graph: ``EAGER_STEPS`` eager steps set
+    up Adam's state (built ``capturable``) and the allocator, the next step is
+    captured, and every step from it on is a replay (``_StepGraph``): the same
+    step function, the same ``num_epochs`` steps in the same order.  A
+    capture that fails raises.  Elsewhere every step runs eagerly.  Each step
+    is a ``fit.step`` span, with a ``fit.capture`` and ``fit.replay`` span in
+    the graph's; the counters ``fit.graph.captures`` and ``fit.graph.replays``
+    count them, and ``ops.launches[...]`` counts the launches of the eager
+    and captured steps only.
 
     The tracker gets ``fit_param_init_time`` (the parameters' and the
     optimizer's set-up), ``fit_first_dispatch_time`` (the first step, read
@@ -145,11 +212,30 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
             leaves = list(trainable.values())
             replicated = _replicated(trainable, ts_params, mask)
             batch = loss_fn.device_batch(batch)  # once per fit, not per step
-            opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"])
+            graphed = _graphed(dev, ranks, num_epochs)
+            opt = optimizer("adam", leaves, config["optimizer"]["learning_rate"], capturable=graphed)
             best_loss = torch.full((), np.inf, dtype=dtype, device=dev)
             best_rows = torch.full((batch["e_data"].shape[0],), np.inf, dtype=dtype, device=dev)
             best = [p.detach().clone() for p in leaves]
 
+        def step():
+            with loss_fn.sharded(ranks):
+                (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
+            with trace.span("optimizer.step"):
+                for p, g in zip(leaves, _summed_grads(list(grads.values()), replicated, ranks)):
+                    p.grad = g
+                opt.step()
+            with trace.span("fit.best"), torch.no_grad():
+                improved = value < best_loss
+                torch.where(improved, value, best_loss, out=best_loss)
+                if per_lineout:  # every trainable leaf is per lineout ([B]): select by the row's own loss
+                    improved = aux[2] < best_rows
+                    torch.where(improved, aux[2], best_rows, out=best_rows)
+                for p, b in zip(leaves, best):
+                    torch.where(improved, p, b, out=b)
+            return value
+
+        run_step = _StepGraph(step, dev) if graphed else step
         chunk = max(1, int(config["optimizer"].get("chunk_size", 8)))
         done = 0
         mlflow.log_metrics({"fit_param_init_time": round(init.seconds, 2)})
@@ -159,25 +245,12 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
                 values = []
                 for _ in range(length):
                     first = done == 0 and not values
-                    with trace.timed("fit.step") as step:
-                        with loss_fn.sharded(ranks):
-                            (value, aux), grads = loss_fn.value_and_grad(ts_params, batch, trainable)
-                        with trace.span("optimizer.step"):
-                            for p, g in zip(leaves, _summed_grads(list(grads.values()), replicated, ranks)):
-                                p.grad = g
-                            opt.step()
-                        with trace.span("fit.best"), torch.no_grad():
-                            improved = value < best_loss
-                            best_loss = torch.where(improved, value, best_loss)
-                            if per_lineout:  # every trainable leaf is per lineout ([B]): select by the row's own loss
-                                improved = aux[2] < best_rows
-                                best_rows = torch.where(improved, aux[2], best_rows)
-                            best = [torch.where(improved, p, b) for p, b in zip(leaves, best)]
-                    values.append(value)
+                    with trace.timed("fit.step") as one:
+                        values.append(run_step())
                     if first:
                         with trace.timed("fit.readback") as readback:
-                            float(value)  # the first step, read back
-                        mlflow.log_metrics({"fit_first_dispatch_time": round(step.seconds + readback.seconds, 2)})
+                            float(values[0])  # the first step, read back
+                        mlflow.log_metrics({"fit_first_dispatch_time": round(one.seconds + readback.seconds, 2)})
                 if record is not None:
                     with trace.span("fit.readback"):
                         losses = torch.stack(values).tolist()  # the chunk's one host read; synchronizes
@@ -186,6 +259,8 @@ def _1d_adam_loop_(config, loss_fn: LossFunction, previous_weights, batch, recor
                 record.setdefault("chunk_seconds", []).append(in_chunk.seconds)
                 record.setdefault("chunk_steps", []).append(length)
             done += length
+        if graphed:
+            run_step.release()
 
         with torch.no_grad():
             for p, b in zip(leaves, best):

@@ -534,10 +534,13 @@ UNRUNNABLE = {
 }
 
 
-def optimizer(method, leaves, lr):
-    """The optimizer ``method`` (an optax name of ``METHODS``) over ``leaves`` at learning rate ``lr``."""
+def optimizer(method, leaves, lr, capturable=False):
+    """The optimizer ``method`` (an optax name of ``METHODS``) over ``leaves`` at learning rate ``lr``.
+
+    ``capturable`` (adam only) keeps Adam's step count on the device, so that its step can be captured in a CUDA
+    graph (``loops._1d_adam_loop_`` on the card)."""
     if method == "adam":
-        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
     if method in UNRUNNABLE:
         error, reason = UNRUNNABLE[method]
         raise error(reason)
